@@ -1,0 +1,49 @@
+"""The port stands alone: no module of ``torchdriveenv_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, Flax or the JAX package."""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax",
+             "torchdriveenv_tpu")
+
+
+def _sources():
+    pkg = os.path.join(ROOT, "torchdriveenv_tpu_torch")
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(pkg):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_the_package_has_the_slice_modules():
+    rel = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in ("__init__", "config", "bench", "maps/arrays", "ops/bicycle",
+                "ops/collision", "ops/traffic_lights", "ops/offroad",
+                "ops/waypoints", "npc/route_follow", "env/core",
+                "ops/rasterizer", "ops/rasterizer_cuda", "ops/_build",
+                "env/batched"):
+        assert f"torchdriveenv_tpu_torch/{mod}.py" in rel, mod
+    assert os.path.exists(os.path.join(ROOT, "torchdriveenv_tpu_torch",
+                                       "csrc", "rasterizer.cu"))
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for name in _imported(tree):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {name}"

@@ -1,0 +1,19 @@
+"""torchdriveenv_tpu_torch — the PyTorch / CUDA port of ``torchdriveenv_tpu``.
+
+The batched driving environment (bicycle kinematics, IDM route-follower
+NPCs, OBB collision, SDF offroad, traffic lights, waypoint reward, pooled
+auto-reset and the 3x64x64 birdview) in plain PyTorch, with the birdview
+rasterizer as a hand-written CUDA kernel (``csrc/rasterizer.cu``).
+
+The JAX package stays the reference. This package imports nothing of it:
+it reads the same compiled asset files by path.
+"""
+
+__version__ = "0.1.0"
+
+import os
+
+# The JAX package's compiled assets, read in place (never copied).
+_pkg_dir = os.path.dirname(os.path.realpath(__file__))
+_data_path = [os.path.normpath(os.path.join(_pkg_dir, "..", "torchdriveenv_tpu",
+                                            "assets"))]

@@ -1,0 +1,391 @@
+"""Fused birdview rasterizer: the CUDA kernel, its plain twin and the
+dispatcher (port of ``torchdriveenv_tpu/ops/rasterizer_pallas.py``).
+
+``prepare_obs_inputs`` culls and packs each env's render inputs into fixed
+blocks (plain torch). ``render_obs_cuda`` launches the hand-written kernel
+``csrc/rasterizer.cu`` on them; ``render_obs_torch`` is its plain twin, the
+same arithmetic expression in torch ops: the CPU path and the kernel's
+oracle on the card. Both paint, per pixel: background, the analytic road
+(within ``sign(hw)*hw^2`` of a corridor segment of the ego cell's list),
+waypoint discs, stoplines tinted by light state (nearest wins), NPC boxes,
+then the ego box.
+
+Bit-equality of kernel and twin rests on identical operand order, IEEE
+division and no multiply-add contraction: torch runs each op as its own
+kernel, and the CUDA source is built with ``--fmad=false``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from torchdriveenv_tpu_torch.maps.arrays import MapArrays
+from torchdriveenv_tpu_torch.ops import _build
+from torchdriveenv_tpu_torch.ops.rasterizer import (
+    COLOR_BACKGROUND,
+    COLOR_EGO,
+    COLOR_LIGHT,
+    COLOR_NPC,
+    COLOR_ROAD,
+    COLOR_WAYPOINT,
+    RENDER_MAX_AGENTS,
+    RENDER_MAX_LIGHTS,
+    RENDER_MAX_WAYPOINTS,
+    STOPLINE_HALF_THICK,
+    WAYPOINT_RADIUS,
+)
+from torchdriveenv_tpu_torch.ops.traffic_lights import light_states_at
+
+SEG_CHUNK = 8       # segments per vectorized step of the twin
+KERNEL_RES = 64     # the kernel's pixel layout: 256 threads x 16 pixels
+
+
+# ---------------------------------------------------------------------------
+# per-env cull & pack (plain torch; shared by the kernel and its twin)
+# ---------------------------------------------------------------------------
+
+
+def _top_k_indices(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest along the last axis, ties to the lower index
+    (``lax.top_k``'s order; ``torch.topk`` promises none)."""
+    return torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, ...) rows idx (B, k) -> (B, k, ...)."""
+    shape = idx.shape + x.shape[2:]
+    flat_idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(shape)
+    return torch.gather(x, 1, flat_idx)
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[1]))
+
+
+def prepare_obs_inputs(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
+                       agent_states: torch.Tensor, agent_attrs: torch.Tensor,
+                       present: torch.Tensor, waypoints: torch.Tensor,
+                       target_idx: torch.Tensor, n_waypoints: torch.Tensor,
+                       fov: float):
+    """Cull and pack the render inputs of B envs into fixed blocks.
+
+    Returns (ci, cj, nseg (B,) int32, env_block (B, 8, 8),
+             agent_block (B, 16, 8), wp_block (B, 8, 8)):
+      env_block row 0: ego [x, y, cos, sin, half_len, half_wid, 0, 0]
+      env_block rows 2..5: stoplines [p0x, p0y, p1x, p1y, r, g, b, active]
+      agent_block rows: NPCs [x, y, cos, sin, half_len, half_wid, present, 0]
+      wp_block rows: waypoints [x, y, valid, 0, ...]
+    ``target_idx`` does not affect the frame (every waypoint but index 0 is
+    drawn all episode); it stays in the signature like the JAX code's.
+    """
+    del target_idx
+    dev = agent_states.device
+    b = town.shape[0]
+    tw = town.long()
+    ego = agent_states[:, 0]
+    c_ego, s_ego = torch.cos(ego[:, 2]), torch.sin(ego[:, 2])
+    ninf = torch.full((), -float("inf"), device=dev)
+
+    # waypoints: the nearest visible discs
+    w = waypoints.shape[1]
+    wp_ids = torch.arange(w, device=dev)
+    wp_mask = (wp_ids >= 1) & (wp_ids < n_waypoints[:, None])
+    dwp = waypoints - ego[:, None, :2]
+    wp_d2 = (dwp * dwp).sum(dim=-1)
+    wp_half_diag = fov * 0.7071 + WAYPOINT_RADIUS
+    wp_visible = wp_mask & (wp_d2 < wp_half_diag * wp_half_diag)
+    wk = min(RENDER_MAX_WAYPOINTS, w)
+    w_top = _top_k_indices(torch.where(wp_visible, -wp_d2, ninf), wk)
+    wp_rows = torch.cat([
+        _take_rows(waypoints, w_top),
+        torch.gather(wp_visible, 1, w_top)[..., None].to(torch.float32),
+        torch.zeros(b, wk, 5, device=dev)], dim=-1)
+    wp_block = _pad_rows(wp_rows, 8)
+
+    # stoplines: the nearest visible lights
+    p0_all, p1_all = maps.stop_p0[tw], maps.stop_p1[tw]            # (B, L, 2)
+    mid = (p0_all + p1_all) * 0.5
+    dl = mid - ego[:, None, :2]
+    l_d2 = (dl * dl).sum(dim=-1)
+    half_diag_l = fov * 0.7071 + 8.0
+    l_visible = maps.light_mask[tw] & (l_d2 < half_diag_l * half_diag_l)
+    lk = min(RENDER_MAX_LIGHTS, p0_all.shape[1])
+    l_top = _top_k_indices(torch.where(l_visible, -l_d2, ninf), lk)
+    states_l = torch.gather(light_states_at(maps, town, t), 1, l_top)
+    palette = torch.tensor(COLOR_LIGHT, device=dev)
+    sl_color = palette[torch.clamp(states_l, 0, 2).long()]         # (B, lk, 3)
+    sl_rows = torch.cat([
+        _take_rows(p0_all, l_top), _take_rows(p1_all, l_top), sl_color,
+        torch.gather(l_visible, 1, l_top)[..., None].to(torch.float32)], dim=-1)
+    sl_rows = _pad_rows(sl_rows, 4)
+
+    # agents: the nearest visible NPCs
+    a = agent_states.shape[1]
+    npc_mask = present & (torch.arange(a, device=dev) > 0)
+    half_diag_a = fov * 0.7071 + 4.0
+    da = agent_states[..., :2] - ego[:, None, :2]
+    d2 = (da * da).sum(dim=-1)
+    visible = npc_mask & (d2 < half_diag_a * half_diag_a)
+    k = min(RENDER_MAX_AGENTS, a)
+    top = _top_k_indices(torch.where(visible, -d2, ninf), k)
+    st, at = _take_rows(agent_states, top), _take_rows(agent_attrs, top)
+    agent_block = torch.stack([
+        st[..., 0], st[..., 1], torch.cos(st[..., 2]), torch.sin(st[..., 2]),
+        at[..., 0] * 0.5, at[..., 1] * 0.5,
+        torch.gather(visible, 1, top).to(torch.float32),
+        torch.zeros(b, k, device=dev)], dim=-1)
+    agent_block = _pad_rows(agent_block, 16)
+
+    zero = torch.zeros(b, device=dev)
+    ego_row = torch.stack([
+        ego[:, 0], ego[:, 1], c_ego, s_ego,
+        agent_attrs[:, 0, 0] * 0.5, agent_attrs[:, 0, 1] * 0.5, zero, zero],
+        dim=-1)
+    env_block = torch.cat([ego_row[:, None], torch.zeros(b, 1, 8, device=dev),
+                           sl_rows, torch.zeros(b, 2, 8, device=dev)], dim=1)
+
+    # coarse segment-index cell of the ego (truncation toward zero, then clip)
+    cgrid = maps.seg_cell_n.shape[-1]
+    cell = ((ego[:, :2] - maps.origin[tw]) / maps.seg_cell).to(torch.int32)
+    cell = torch.clamp(cell, 0, cgrid - 1)
+    ci, cj = cell[:, 0].contiguous(), cell[:, 1].contiguous()
+    nseg = maps.seg_cell_n[tw, ci.long(), cj.long()]
+    return ci, cj, nseg, env_block, agent_block, wp_block
+
+
+# ---------------------------------------------------------------------------
+# the plain twin: per-pixel math over (B, res, res)
+# ---------------------------------------------------------------------------
+
+
+def _col(x: torch.Tensor) -> torch.Tensor:
+    """(B, ...) per-env values -> broadcastable against (B, ..., res, res)."""
+    return x[..., None, None]
+
+
+def _pixel_world(ego_row, res: int, fov: float, left_handed: bool,
+                 img_row, img_col):
+    """World coords (B, res, res) of pixel centers, ego row (B, 8)."""
+    m_per_px = fov / res
+    fwd = -(img_row - (res - 1) / 2.0) * m_per_px
+    rgt = (img_col - (res - 1) / 2.0) * m_per_px
+    if left_handed:
+        rgt = -rgt
+    ex, ey, c, s = (_col(ego_row[:, 0]), _col(ego_row[:, 1]),
+                    _col(ego_row[:, 2]), _col(ego_row[:, 3]))
+    px = ex + fwd * c + rgt * s
+    py = ey + fwd * s - rgt * c
+    return px, py
+
+
+def _seg_chunk_hit(chunk, px, py):
+    """chunk (B, n, 8) segment rows vs px/py (B, res, res) -> (B, res, res)."""
+    ax, ay = _col(chunk[..., 0]), _col(chunk[..., 1])
+    sx, sy = _col(chunk[..., 2]) - ax, _col(chunk[..., 3]) - ay
+    shw2 = _col(chunk[..., 4])
+    inv_len2 = torch.reciprocal(torch.clamp(sx * sx + sy * sy, min=1e-9))
+    relx = px[:, None] - ax
+    rely = py[:, None] - ay
+    tt = torch.clamp((relx * sx + rely * sy) * inv_len2, 0.0, 1.0)
+    dx = relx - tt * sx
+    dy = rely - tt * sy
+    return (dx * dx + dy * dy <= shw2).any(dim=1)
+
+
+def _obb_hit(rows, px, py):
+    """rows (B, n, 8) agent rows vs px/py -> (B, res, res) any-covered."""
+    relx = px[:, None] - _col(rows[..., 0])
+    rely = py[:, None] - _col(rows[..., 1])
+    c, s = _col(rows[..., 2]), _col(rows[..., 3])
+    lx = relx * c + rely * s
+    ly = -relx * s + rely * c
+    hit = ((torch.abs(lx) <= _col(rows[..., 4]))
+           & (torch.abs(ly) <= _col(rows[..., 5]))
+           & (_col(rows[..., 6]) > 0.0))
+    return hit.any(dim=1)
+
+
+def _seg_dist2_scalar(p0x, p0y, p1x, p1y, px, py):
+    """One segment per env ((B, 1, 1) each) vs px/py -> squared distance."""
+    sx, sy = p1x - p0x, p1y - p0y
+    inv_len2 = torch.reciprocal(torch.clamp(sx * sx + sy * sy, min=1e-9))
+    relx, rely = px - p0x, py - p0y
+    tt = torch.clamp((relx * sx + rely * sy) * inv_len2, 0.0, 1.0)
+    dx, dy = relx - tt * sx, rely - tt * sy
+    return dx * dx + dy * dy
+
+
+def _wp_hit(wp_block, px, py):
+    """wp_block (B, W, 8) rows [x, y, valid, ...] -> (B, res, res) any-inside."""
+    dx = px[:, None] - _col(wp_block[..., 0])
+    dy = py[:, None] - _col(wp_block[..., 1])
+    hit = ((dx * dx + dy * dy < WAYPOINT_RADIUS * WAYPOINT_RADIUS)
+           & (_col(wp_block[..., 2]) > 0.0))
+    return hit.any(dim=1)
+
+
+def _composite(px, py, road, env_block, agent_block, wp_block,
+               highlight_ego: bool):
+    """Overlay stack -> 3 float planes shaped like px."""
+    ego_row = env_block[:, 0]
+    wp_hit = _wp_hit(wp_block, px, py)
+    npc_hit = _obb_hit(agent_block, px, py)
+
+    relx, rely = px - _col(ego_row[:, 0]), py - _col(ego_row[:, 1])
+    lx = relx * _col(ego_row[:, 2]) + rely * _col(ego_row[:, 3])
+    ly = -relx * _col(ego_row[:, 3]) + rely * _col(ego_row[:, 2])
+    ego_hit = ((torch.abs(lx) <= _col(ego_row[:, 4]))
+               & (torch.abs(ly) <= _col(ego_row[:, 5])))
+
+    thick2 = STOPLINE_HALF_THICK * STOPLINE_HALF_THICK
+    sl_hits = []
+    for k_sl in range(4):
+        sl = [_col(env_block[:, 2 + k_sl, j]) for j in range(8)]
+        d2 = _seg_dist2_scalar(sl[0], sl[1], sl[2], sl[3], px, py)
+        sl_hits.append(((d2 < thick2) & (sl[7] > 0.0), sl))
+    ego_color = COLOR_EGO if highlight_ego else COLOR_NPC
+    chans = []
+    for ch in range(3):
+        v = torch.full(px.shape, COLOR_BACKGROUND[ch], device=px.device)
+        v = torch.where(road, COLOR_ROAD[ch], v)
+        v = torch.where(wp_hit, COLOR_WAYPOINT[ch], v)
+        # reverse order => nearest stopline wins on overlap
+        for k_sl in range(3, -1, -1):
+            hit, sl = sl_hits[k_sl]
+            v = torch.where(hit, sl[4 + ch], v)
+        v = torch.where(npc_hit, COLOR_NPC[ch], v)
+        v = torch.where(ego_hit, ego_color[ch], v)
+        chans.append(v)
+    return chans
+
+
+def render_obs_torch(maps: MapArrays, town, ci, cj, nseg, env_block,
+                     agent_block, wp_block, res: int = 64, fov: float = 70.0,
+                     left_handed: bool = True,
+                     highlight_ego: bool = True) -> torch.Tensor:
+    """Plain twin of the kernel (and of the JAX ``render_obs_ref``), batched:
+    -> (B, 3, res, res) uint8. Scans every row of each env's segment list;
+    rows past ``nseg`` never hit (their ``sign(hw)*hw^2`` is negative)."""
+    del nseg
+    seg = maps.seg_data[town.long(), ci.long(), cj.long()]        # (B, K, 8)
+    idx = torch.arange(res, dtype=torch.float32, device=env_block.device)
+    img_row, img_col = torch.meshgrid(idx, idx, indexing="ij")
+    px, py = _pixel_world(env_block[:, 0], res, fov, left_handed,
+                          img_row, img_col)
+    road = torch.zeros(px.shape, dtype=torch.bool, device=px.device)
+    for s0 in range(0, seg.shape[1], SEG_CHUNK):
+        road |= _seg_chunk_hit(seg[:, s0:s0 + SEG_CHUNK], px, py)
+    chans = _composite(px, py, road, env_block, agent_block, wp_block,
+                       highlight_ego)
+    return torch.stack(chans, dim=1).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+
+def _kernel_params(res: int, fov: float, highlight_ego: bool):
+    """The kernel's float constants, rounded to f32 as the twin rounds them."""
+    ego_color = COLOR_EGO if highlight_ego else COLOR_NPC
+    vals = ([fov / res, (res - 1) / 2.0,
+             STOPLINE_HALF_THICK * STOPLINE_HALF_THICK,
+             WAYPOINT_RADIUS * WAYPOINT_RADIUS, 1e-9]
+            + list(COLOR_BACKGROUND) + list(COLOR_ROAD) + list(COLOR_WAYPOINT)
+            + list(COLOR_NPC) + list(ego_color))
+    return (ctypes.c_float * len(vals))(*np.asarray(vals, np.float32).tolist())
+
+
+def _check(name: str, x: torch.Tensor, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"render_obs_cuda: {name} is on {x.device}, "
+                         f"expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"render_obs_cuda: {name} has dtype {x.dtype}, "
+                        f"expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"render_obs_cuda: {name} has shape "
+                         f"{tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"render_obs_cuda: {name} is not contiguous")
+
+
+def render_obs_cuda(maps: MapArrays, town, ci, cj, nseg, env_block,
+                    agent_block, wp_block, res: int = 64, fov: float = 70.0,
+                    left_handed: bool = True,
+                    highlight_ego: bool = True) -> torch.Tensor:
+    """Launch ``csrc/rasterizer.cu`` on CUDA tensors -> (B, 3, res, res)
+    uint8 on the current stream. Raises on tensors elsewhere than the GPU,
+    on any other dtype, shape or layout, and on a failed launch."""
+    seg = maps.seg_data
+    dev = env_block.device
+    if dev.type != "cuda":
+        raise ValueError("render_obs_cuda needs CUDA tensors; got "
+                         f"{dev} (use render_obs_torch on the CPU)")
+    if res != KERNEL_RES:
+        raise ValueError(f"render_obs_cuda renders res={KERNEL_RES} only, "
+                         f"got {res}")
+    b = env_block.shape[0]
+    n_town, n_cell, _, k_rows, _ = seg.shape
+    _check("seg_data", seg, torch.float32, (n_town, n_cell, n_cell, k_rows, 8),
+           dev)
+    for name, x in (("town", town), ("ci", ci), ("cj", cj), ("nseg", nseg)):
+        _check(name, x, torch.int32, (b,), dev)
+    _check("env_block", env_block, torch.float32, (b, 8, 8), dev)
+    _check("agent_block", agent_block, torch.float32, (b, RENDER_MAX_AGENTS, 8),
+           dev)
+    _check("wp_block", wp_block, torch.float32, (b, RENDER_MAX_WAYPOINTS, 8), dev)
+    out = torch.empty((b, 3, res, res), dtype=torch.uint8, device=dev)
+    if b == 0:
+        return out
+    lib = _build.load_rasterizer()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tde_render_obs(
+            seg.data_ptr(), town.data_ptr(), ci.data_ptr(), cj.data_ptr(),
+            nseg.data_ptr(), env_block.data_ptr(), agent_block.data_ptr(),
+            wp_block.data_ptr(), out.data_ptr(),
+            b, n_town, n_cell, k_rows, int(left_handed),
+            _kernel_params(res, fov, highlight_ego), stream)
+    if rc != 0:
+        raise RuntimeError(f"rasterizer kernel launch failed: CUDA error {rc} "
+                           f"({lib.tde_error_string(rc).decode()})")
+    render_obs_cuda.launches += 1
+    return out
+
+
+render_obs_cuda.launches = 0    # kernel launches since the last reset to 0
+
+
+# ---------------------------------------------------------------------------
+# public batched entry point
+# ---------------------------------------------------------------------------
+
+
+def render_observation(maps: MapArrays, town, t, agent_states, agent_attrs,
+                       present, waypoints, target_idx, n_waypoints,
+                       res: int = 64, fov: float = 70.0,
+                       left_handed: bool = True, highlight_ego: bool = True,
+                       backend: str = "auto") -> torch.Tensor:
+    """Batched egocentric birdview -> (B, 3, res, res) uint8.
+
+    ``backend``: "cuda" (the kernel; raises unless the inputs are on a CUDA
+    device), "torch" (the plain twin), or "auto" (the kernel for CUDA
+    inputs, the twin for CPU inputs).
+    """
+    prep = prepare_obs_inputs(maps, town, t, agent_states, agent_attrs,
+                              present, waypoints, target_idx, n_waypoints,
+                              fov=fov)
+    if backend == "auto":
+        backend = "cuda" if agent_states.is_cuda else "torch"
+    if backend == "cuda":
+        fn = render_obs_cuda
+    elif backend == "torch":
+        fn = render_obs_torch
+    else:
+        raise ValueError(f"unknown rasterizer backend {backend!r}")
+    return fn(maps, town, *prep, res=res, fov=fov, left_handed=left_handed,
+              highlight_ego=highlight_ego)
