@@ -8,10 +8,17 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; no phase catches and carries on):
   1. build   compile every CUDA kernel of the main path from csrc/ (nvcc,
              sm_90a) and print the time and nvcc's register report;
-  2. kernels hold each kernel against its plain torch twin on the card, at
-             the main path's shapes (4096 train envs after 8 steps) and on
-             two edge batches (256 ego-only envs; 256 envs in the cell with
-             the most road segments), bit for bit; time kernel and twin;
+  2. kernels hold the rasterizer kernel against its plain torch twin on the
+             card, bit for bit, at the main path's shapes (4096 train envs
+             after 8 steps) and on five edge batches (256 ego-only envs; 256
+             envs in the cell with the most road segments; the main batch
+             right-handed without the ego highlight; 256 egos on borders and
+             corners of the segment grid and beyond the towns' edges; 256
+             envs with every agent and waypoint slot filled and crowded onto
+             the ego); hold the full-scan kernel (the first version, kept as
+             a yardstick) against the twin too; time both kernels in turns
+             and the twin, and print them beside both bounds and the number
+             of segments that survive the kernel's culls;
   3. main    drive the port's main path, BatchedEnv.step at 4096 envs with
              the default EnvConfig, with the launch counts set to 0 just
              before and read just after; the kernel must have launched once
@@ -102,7 +109,7 @@ def main() -> int:
     log(f"[build] {len(reports)} kernel(s) in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
+            if "entry function" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     # ---- 2. kernels against their plain versions -----------------------
@@ -114,65 +121,169 @@ def main() -> int:
     for _ in range(8):
         state = env.step(state, act).state
 
-    def prep_of(cfg, st):
+    def prep_of(cfg, st, waypoints=None, n_waypoints=None):
         t = st.time0 + st.step_idx.float() * cfg.simulator.dt
         case = st.case.long()
+        if waypoints is None:
+            waypoints = assets.suite.waypoints[case]
+            n_waypoints = assets.suite.n_waypoints[case]
         return rc.prepare_obs_inputs(
             maps, st.town, t, st.agent_states, st.agent_attrs, st.present,
-            assets.suite.waypoints[case], st.target_idx,
-            assets.suite.n_waypoints[case], fov=cfg.simulator.renderer.obs_fov)
+            waypoints, st.target_idx, n_waypoints,
+            fov=cfg.simulator.renderer.obs_fov)
 
-    def compare(label, cfg, st, time_it):
-        prep = prep_of(cfg, st)
-        kern = rc.render_obs_cuda(maps, st.town, *prep)
-        twin = rc.render_obs_torch(maps, st.town, *prep)
+    def compare(label, town, prep, **kw):
+        """The culled kernel against the twin on one batch, bit for bit."""
+        kern = rc.render_obs_cuda(maps, town, *prep, **kw)
+        twin = rc.render_obs_torch(maps, town, *prep, **kw)
         torch.cuda.synchronize()
         bad = int((kern != twin).sum())
         nseg = prep[2]
         q = torch.quantile(nseg.float(), torch.tensor([0.5, 0.9],
                                                       device=nseg.device))
-        log(f"[kernels] rasterizer {label}: B={st.town.shape[0]} nseg mean "
+        log(f"[kernels] rasterizer {label}: B={town.shape[0]} nseg mean "
             f"{nseg.float().mean():.1f} p50 {q[0]:.0f} p90 {q[1]:.0f} max "
-            f"{int(nseg.max())} mismatched bytes {bad} of {kern.numel()}")
+            f"{int(nseg.max())} agents {(prep[4][..., 6] > 0).sum(1).float().mean():.1f} "
+            f"waypoints {(prep[5][..., 2] > 0).sum(1).float().mean():.1f} "
+            f"mismatched bytes {bad} of {kern.numel()}")
         if bad or not torch.equal(kern, twin):
             raise AssertionError(f"rasterizer kernel != twin on {label}")
-        if not time_it:
-            return None
-        k_ms = cuda_ms(lambda: rc.render_obs_cuda(maps, st.town, *prep), 20)
-        p_ms = cuda_ms(lambda: rc.render_obs_torch(maps, st.town, *prep), 3)
-        bound, bound_by, b_ms, o_ms = rasterizer_bound_ms(maps, st.town,
-                                                          *prep[:3])
-        log(f"[kernels] rasterizer {label}: kernel {k_ms:.4f} ms, twin "
-            f"{p_ms:.4f} ms, bound {bound:.4f} ms (by {bound_by}; bytes "
-            f"{b_ms:.4f} ms, operations {o_ms:.4f} ms) [{card}]")
-        return dict(max_abs_err=float((kern.int() - twin.int()).abs().max()),
-                    ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-                    nseg_mean=float(nseg.float().mean()))
+        return kern, twin
 
-    main_cmp = compare("main batch", EnvConfig(), state, time_it=True)
+    main_prep = prep_of(EnvConfig(), state)
+    kern, twin = compare("main batch", state.town, main_prep)
+    full = rc._render_obs_cuda_fullscan(maps, state.town, *main_prep)
+    torch.cuda.synchronize()
+    bad = int((full != twin).sum())
+    log(f"[kernels] full-scan kernel main batch: mismatched bytes {bad} of "
+        f"{full.numel()}")
+    if bad:
+        raise AssertionError("full-scan kernel != twin on the main batch")
+
+    # both kernels in turns (new, full, full, new), then the twin
+    def t_new():
+        return cuda_ms(lambda: rc.render_obs_cuda(maps, state.town, *main_prep),
+                       50)
+
+    def t_full():
+        return cuda_ms(lambda: rc._render_obs_cuda_fullscan(
+            maps, state.town, *main_prep), 20)
+
+    turns = [t_new(), t_full(), t_full(), t_new()]
+    k_ms, f_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    p_ms = cuda_ms(lambda: rc.render_obs_torch(maps, state.town, *main_prep), 3)
+    _, _, b_ms, o_ms = rasterizer_bound_ms(maps, state.town, *main_prep[:3])
+    # The operation count is the full scan's. A kernel that beats it does
+    # fewer operations than it counts, so only the bytes still bound it.
+    bound, bound_by = (o_ms, "operations") if k_ms >= o_ms else (b_ms, "bytes")
+    masks = rc.cull_masks_torch(maps, state.town, *main_prep)
+    surv = dict(
+        nseg_mean=float(main_prep[2].float().mean()),
+        frame_segments_mean=float(masks.frame.sum(1).float().mean()),
+        tile_segments_mean=float(masks.seg.sum(2).float().mean()),
+        tile_segments_max=int(masks.seg.sum(2).max()),
+        tile_agents_mean=float(masks.agent.sum(2).float().mean()),
+        tile_waypoints_mean=float(masks.wp.sum(2).float().mean()),
+        tile_stoplines_mean=float(masks.stopline.sum(2).float().mean()),
+        tile_ego_share=float(masks.ego.float().mean()))
+    del masks
+    log(f"[kernels] rasterizer main batch: kernel {k_ms:.4f} ms (turns "
+        f"{turns[0]:.4f}, {turns[3]:.4f}), full-scan kernel {f_ms:.4f} ms "
+        f"(turns {turns[1]:.4f}, {turns[2]:.4f}), twin {p_ms:.4f} ms, bounds: "
+        f"bytes {b_ms:.4f} ms, full-scan operations {o_ms:.4f} ms; segments "
+        f"per env: listed {surv['nseg_mean']:.1f}, after the frame cull "
+        f"{surv['frame_segments_mean']:.1f}, per tile "
+        f"{surv['tile_segments_mean']:.2f} (max {surv['tile_segments_max']}); "
+        f"per tile: agents {surv['tile_agents_mean']:.2f}, waypoints "
+        f"{surv['tile_waypoints_mean']:.2f}, stoplines "
+        f"{surv['tile_stoplines_mean']:.3f}, ego {surv['tile_ego_share']:.3f} "
+        f"[{card}]")
+    main_cmp = dict(max_abs_err=float((kern.int() - twin.int()).abs().max()),
+                    ms=k_ms, fullscan_ms=f_ms, plain_ms=p_ms, bound_ms=bound,
+                    bound_by=bound_by, bytes_bound_ms=b_ms,
+                    fullscan_operations_bound_ms=o_ms, **surv)
+    del kern, twin, full
+
+    compare("main batch, right-handed, ego not highlighted", state.town,
+            main_prep, left_handed=False, highlight_ego=False)
 
     ego_cfg = EnvConfig(ego_only=True)
     ego_env = BatchedEnv(ego_cfg, assets, 256, seed=1)
     ego_state, _ = ego_env.reset()
     ego_state = ego_env.step(ego_state, act[:256]).state
-    compare("ego-only edge batch", ego_cfg, ego_state, time_it=False)
+    compare("ego-only edge batch", ego_state.town, prep_of(ego_cfg, ego_state))
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    sub = state.take(torch.arange(256, device="cuda"))
+    n_cell = maps.seg_cell_n.shape[-1]
+
+    def moved_to(ego_xy, town, spread=None):
+        """`sub` with each env's agents shifted so the ego sits at ego_xy
+        (or, with `spread`, scattered that far around it), headings redrawn."""
+        moved = sub.agent_states.clone()
+        if spread is None:
+            moved[..., :2] += (ego_xy - sub.agent_states[:, 0, :2])[:, None, :]
+        else:
+            moved[..., :2] = ego_xy[:, None, :] + (torch.rand(
+                256, moved.shape[1], 2, generator=g, device="cuda") - 0.5
+            ) * 2 * spread
+            moved[:, 0, :2] = ego_xy
+        moved[:, :, 2] = torch.rand(256, moved.shape[1], generator=g,
+                                    device="cuda") * 6.2832
+        return sub.replace(agent_states=moved, town=town.to(sub.town.dtype))
 
     # 256 envs moved, with their agents, into the cell with the most segments
     flat = int(torch.argmax(maps.seg_cell_n))
-    n_cell = maps.seg_cell_n.shape[-1]
     town_m, ci_m, cj_m = flat // (n_cell * n_cell), (flat // n_cell) % n_cell, flat % n_cell
-    g = torch.Generator(device="cuda").manual_seed(2)
-    sub = state.take(torch.arange(256, device="cuda"))
     corner = maps.origin[town_m] + torch.tensor([ci_m, cj_m], device="cuda") * maps.seg_cell
     ego_xy = corner + torch.rand(256, 2, generator=g, device="cuda") * maps.seg_cell
-    shift = ego_xy - sub.agent_states[:, 0, :2]
-    moved = sub.agent_states.clone()
-    moved[..., :2] += shift[:, None, :]
-    moved[:, :, 2] = torch.rand(256, 96, generator=g, device="cuda") * 6.2832
-    dense = sub.replace(agent_states=moved,
-                        town=torch.full_like(sub.town, town_m))
+    dense = moved_to(ego_xy, torch.full_like(sub.town, town_m))
     compare(f"densest-cell edge batch (nseg {int(maps.seg_cell_n.max())})",
-            EnvConfig(), dense, time_it=False)
+            dense.town, prep_of(EnvConfig(), dense))
+
+    # 224 egos on borders and corners of the 56 busiest cells, 32 beyond the
+    # towns' edges, where the cell index clamps
+    busiest = torch.argsort(maps.seg_cell_n.flatten(), descending=True)[:56]
+    busiest = busiest.repeat_interleave(4)
+    b_town = busiest // (n_cell * n_cell)
+    b_cell = torch.stack([(busiest // n_cell) % n_cell, busiest % n_cell], 1)
+    offs = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 0.5], [1.0, 1.0]],
+                        device="cuda").repeat(56, 1)
+    on_border = maps.origin[b_town] + (b_cell + offs) * maps.seg_cell
+    e_town = torch.arange(32, device="cuda") % maps.origin.shape[0]
+    side = n_cell * maps.seg_cell
+    e_frac = torch.rand(32, 2, generator=g, device="cuda")
+    e_frac[0::2, 0] = -5.0 / side            # 5 m outside the low edge
+    e_frac[1::2, 1] = 1.0 + 5.0 / side       # 5 m outside the high edge
+    outside = maps.origin[e_town] + e_frac * side
+    border = moved_to(torch.cat([on_border, outside]),
+                      torch.cat([b_town, e_town]))
+    border_prep = prep_of(EnvConfig(), border)
+    log(f"[kernels] cell-border batch: cells clamped to ci "
+        f"{int(border_prep[0].min())}..{int(border_prep[0].max())}, cj "
+        f"{int(border_prep[1].min())}..{int(border_prep[1].max())}")
+    compare("cell-border and town-edge batch", border.town, border_prep)
+
+    # every agent and waypoint slot filled, all within 20 m of the ego (the
+    # frame's centre is a corner of four tiles, so boxes straddle tile borders)
+    crowd = moved_to(dense.agent_states[:, 0, :2], dense.town, spread=20.0)
+    attrs = crowd.agent_attrs.clone()
+    attrs[..., 0] = torch.where(crowd.present, attrs[..., 0], 4.6)
+    attrs[..., 1] = torch.where(crowd.present, attrs[..., 1], 1.9)
+    crowd = crowd.replace(agent_attrs=attrs,
+                          present=torch.ones_like(crowd.present))
+    n_wp = assets.suite.waypoints.shape[1]
+    crowd_wp = crowd.agent_states[:, :1, :2] + (torch.rand(
+        256, n_wp, 2, generator=g, device="cuda") - 0.5) * 30.0
+    crowd_prep = prep_of(EnvConfig(), crowd, crowd_wp,
+                         torch.full_like(crowd.town, n_wp))
+    if not ((crowd_prep[4][..., 6] > 0).all()
+            and (crowd_prep[5][..., 2] > 0).all()):
+        raise AssertionError("the crowded batch left a slot empty")
+    compare("crowded batch (16 boxes, 8 discs on the ego)", crowd.town,
+            crowd_prep)
+    compare("crowded batch, right-handed", crowd.town, crowd_prep,
+            left_handed=False)
 
     # ---- 3. the main path ----------------------------------------------
     cfg = EnvConfig()
@@ -237,10 +348,17 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": main_cmp["max_abs_err"],
         "ms": main_cmp["ms"],
+        "fullscan_ms": main_cmp["fullscan_ms"],
         "plain_ms": main_cmp["plain_ms"],
         "bound_ms": main_cmp["bound_ms"],
         "bound_by": main_cmp["bound_by"],
         "library_ms": None,
+        "bytes_bound_ms": main_cmp["bytes_bound_ms"],
+        "fullscan_operations_bound_ms": main_cmp["fullscan_operations_bound_ms"],
+        "cull": {k: main_cmp[k] for k in (
+            "frame_segments_mean", "tile_segments_mean", "tile_segments_max",
+            "tile_agents_mean", "tile_waypoints_mean", "tile_stoplines_mean",
+            "tile_ego_share")},
     }], "main_path": {"env_steps_per_s": steps_per_s, "timed_steps":
                       TIMED_STEPS, "num_envs": N_ENVS, "obs_checksum": checksum,
                       "phases_ms": phases,

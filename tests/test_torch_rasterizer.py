@@ -5,8 +5,10 @@ envs advanced 12 steps. ``prepare_obs_inputs`` must produce JAX's blocks;
 the plain twin ``render_obs_torch``, fed JAX's blocks, must produce the
 images of the un-jitted JAX ``render_obs_ref`` pixel for pixel (the pixel
 math is + - * / and compares only, which eager XLA and torch round alike;
-cos/sin enter only through the blocks). The kernel itself runs only on a
-GPU: its test compares it with the twin there and skips elsewhere.
+cos/sin enter only through the blocks). The kernels themselves run only on
+a GPU: their test compares them with the twin there and skips elsewhere.
+tests/test_torch_rasterizer_cull.py holds the kernel's cull to the twin on
+the CPU.
 """
 
 
@@ -39,8 +41,9 @@ def tassets():
     return tload("val", device="cpu")
 
 
-@pytest.fixture(scope="module")
-def states(jassets):
+def fixture_states(jassets):
+    """The 8-env fixture: validation envs advanced 12 steps by the JAX env
+    (also the input of tests/test_torch_rasterizer_cull.py)."""
     reset_fn, step_fn = jmake_env_fns(JEnvConfig(), jassets, render=False)
     keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(8, dtype=jnp.uint32))
     state, _ = jax.jit(reset_fn)(keys)
@@ -51,6 +54,11 @@ def states(jassets):
     return jax.tree.map(np.array, state)
 
 
+@pytest.fixture(scope="module")
+def states(jassets):
+    return fixture_states(jassets)
+
+
 def _render_args(assets_suite, state):
     t = (state.time0 + state.step_idx.astype(np.float32) * np.float32(0.1)
          ).astype(np.float32)
@@ -59,12 +67,17 @@ def _render_args(assets_suite, state):
             state.target_idx, np.asarray(assets_suite.n_waypoints)[state.case])
 
 
-@pytest.fixture(scope="module")
-def jax_prep(jassets, states):
+def fixture_prep(jassets, states):
+    """The fixture's blocks, packed by JAX's own prepare_obs_inputs."""
     args = _render_args(jassets.suite, states)
     prep = jax.vmap(lambda *a: jrp.prepare_obs_inputs(jassets.maps, *a,
                                                       fov=70.0))(*args)
     return [np.array(x) for x in prep]
+
+
+@pytest.fixture(scope="module")
+def jax_prep(jassets, states):
+    return fixture_prep(jassets, states)
 
 
 def test_prepare_obs_inputs_matches_jax(tassets, jassets, states, jax_prep):
@@ -174,8 +187,13 @@ def test_cuda_backend_refuses_cpu_tensors(tassets, jassets, states, jax_prep):
 
 
 @pytest.mark.cuda
-def test_kernel_matches_twin_on_gpu():
-    """The CUDA kernel is bit-equal to the twin (runs only on a GPU)."""
+@pytest.mark.parametrize("left_handed,highlight_ego",
+                         [(True, True), (False, False)])
+@pytest.mark.parametrize("kernel", ["culled", "fullscan"])
+def test_kernel_matches_twin_on_gpu(kernel, left_handed, highlight_ego):
+    """Both CUDA kernels, the culled one the package launches and the
+    full-scan one it is timed against, are bit-equal to the twin on 64
+    validation envs (runs only on a GPU)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     assets = tload("val", device="cuda")
@@ -191,9 +209,13 @@ def test_kernel_matches_twin_on_gpu():
         assets.maps, state.town, t, state.agent_states, state.agent_attrs,
         state.present, assets.suite.waypoints[case], state.target_idx,
         assets.suite.n_waypoints[case], fov=70.0)
+    fn = {"culled": trc.render_obs_cuda,
+          "fullscan": trc._render_obs_cuda_fullscan}[kernel]
+    kw = dict(left_handed=left_handed, highlight_ego=highlight_ego)
     before = trc.render_obs_cuda.launches
-    kern = trc.render_obs_cuda(assets.maps, state.town, *prep)
-    twin = trc.render_obs_torch(assets.maps, state.town, *prep)
+    kern = fn(assets.maps, state.town, *prep, **kw)
+    twin = trc.render_obs_torch(assets.maps, state.town, *prep, **kw)
     torch.cuda.synchronize()
-    assert trc.render_obs_cuda.launches == before + 1
+    # only the package's own kernel counts as a launch of the main path
+    assert trc.render_obs_cuda.launches == before + (kernel == "culled")
     assert torch.equal(kern, twin)

@@ -10,6 +10,13 @@ oracle on the card. Both paint, per pixel: background, the analytic road
 waypoint discs, stoplines tinted by light state (nearest wins), NPC boxes,
 then the ego box.
 
+The kernel does not test every primitive on every pixel: it drops the
+segments that cannot reach the frame, and per 16 x 16-pixel tile the
+segments, boxes, discs and stoplines that cannot reach the tile. The twin
+stays the full scan. ``cull_masks_torch`` is the plain version of the
+kernel's cull predicates, for the tests that prove them conservative and
+for reading the kernel's time against the work it did.
+
 Bit-equality of kernel and twin rests on identical operand order, IEEE
 division and no multiply-add contraction: torch runs each op as its own
 kernel, and the CUDA source is built with ``--fmad=false``.
@@ -18,6 +25,8 @@ kernel, and the CUDA source is built with ``--fmad=false``.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,7 +49,9 @@ from torchdriveenv_tpu_torch.ops.rasterizer import (
 from torchdriveenv_tpu_torch.ops.traffic_lights import light_states_at
 
 SEG_CHUNK = 8       # segments per vectorized step of the twin
-KERNEL_RES = 64     # the kernel's pixel layout: 256 threads x 16 pixels
+KERNEL_RES = 64     # the kernel's pixel layout: 4 x 4 tiles of CULL_TILE^2
+CULL_TILE = 16      # side of a cull tile in pixels (one warp per tile)
+CULL_MARGIN = 0.25  # metres added to every cull radius (kCullMargin)
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +192,8 @@ def _pixel_world(ego_row, res: int, fov: float, left_handed: bool,
     return px, py
 
 
-def _seg_chunk_hit(chunk, px, py):
-    """chunk (B, n, 8) segment rows vs px/py (B, res, res) -> (B, res, res)."""
+def _seg_hits(chunk, px, py):
+    """chunk (B, n, 8) segment rows vs px/py (B, h, w) -> (B, n, h, w)."""
     ax, ay = _col(chunk[..., 0]), _col(chunk[..., 1])
     sx, sy = _col(chunk[..., 2]) - ax, _col(chunk[..., 3]) - ay
     shw2 = _col(chunk[..., 4])
@@ -192,24 +203,35 @@ def _seg_chunk_hit(chunk, px, py):
     tt = torch.clamp((relx * sx + rely * sy) * inv_len2, 0.0, 1.0)
     dx = relx - tt * sx
     dy = rely - tt * sy
-    return (dx * dx + dy * dy <= shw2).any(dim=1)
+    return dx * dx + dy * dy <= shw2
 
 
-def _obb_hit(rows, px, py):
-    """rows (B, n, 8) agent rows vs px/py -> (B, res, res) any-covered."""
+def _seg_chunk_hit(chunk, px, py):
+    """-> (B, h, w): within any segment of the chunk."""
+    return _seg_hits(chunk, px, py).any(dim=1)
+
+
+def _obb_hits(rows, px, py):
+    """rows (B, n, 8) agent rows vs px/py (B, h, w) -> (B, n, h, w)."""
     relx = px[:, None] - _col(rows[..., 0])
     rely = py[:, None] - _col(rows[..., 1])
     c, s = _col(rows[..., 2]), _col(rows[..., 3])
     lx = relx * c + rely * s
     ly = -relx * s + rely * c
-    hit = ((torch.abs(lx) <= _col(rows[..., 4]))
-           & (torch.abs(ly) <= _col(rows[..., 5]))
-           & (_col(rows[..., 6]) > 0.0))
-    return hit.any(dim=1)
+    return ((torch.abs(lx) <= _col(rows[..., 4]))
+            & (torch.abs(ly) <= _col(rows[..., 5]))
+            & (_col(rows[..., 6]) > 0.0))
+
+
+def _obb_hit(rows, px, py):
+    """-> (B, h, w): covered by any present box."""
+    return _obb_hits(rows, px, py).any(dim=1)
 
 
 def _seg_dist2_scalar(p0x, p0y, p1x, p1y, px, py):
-    """One segment per env ((B, 1, 1) each) vs px/py -> squared distance."""
+    """Segments p0-p1 vs points px/py (broadcast against each other; the
+    composite passes one segment per env, (B, 1, 1) each) -> squared
+    distance."""
     sx, sy = p1x - p0x, p1y - p0y
     inv_len2 = torch.reciprocal(torch.clamp(sx * sx + sy * sy, min=1e-9))
     relx, rely = px - p0x, py - p0y
@@ -218,34 +240,46 @@ def _seg_dist2_scalar(p0x, p0y, p1x, p1y, px, py):
     return dx * dx + dy * dy
 
 
-def _wp_hit(wp_block, px, py):
-    """wp_block (B, W, 8) rows [x, y, valid, ...] -> (B, res, res) any-inside."""
+def _wp_hits(wp_block, px, py):
+    """wp_block (B, W, 8) rows [x, y, valid, ...] -> (B, W, h, w)."""
     dx = px[:, None] - _col(wp_block[..., 0])
     dy = py[:, None] - _col(wp_block[..., 1])
-    hit = ((dx * dx + dy * dy < WAYPOINT_RADIUS * WAYPOINT_RADIUS)
-           & (_col(wp_block[..., 2]) > 0.0))
-    return hit.any(dim=1)
+    return ((dx * dx + dy * dy < WAYPOINT_RADIUS * WAYPOINT_RADIUS)
+            & (_col(wp_block[..., 2]) > 0.0))
+
+
+def _wp_hit(wp_block, px, py):
+    """-> (B, h, w): inside any valid disc."""
+    return _wp_hits(wp_block, px, py).any(dim=1)
+
+
+def _ego_hit(ego_row, px, py):
+    """ego_row (B, 8) vs px/py (B, h, w) -> (B, h, w) covered by the ego."""
+    relx, rely = px - _col(ego_row[:, 0]), py - _col(ego_row[:, 1])
+    lx = relx * _col(ego_row[:, 2]) + rely * _col(ego_row[:, 3])
+    ly = -relx * _col(ego_row[:, 3]) + rely * _col(ego_row[:, 2])
+    return ((torch.abs(lx) <= _col(ego_row[:, 4]))
+            & (torch.abs(ly) <= _col(ego_row[:, 5])))
+
+
+def _stopline_hits(env_block, px, py):
+    """env_block rows 2..5 vs px/py (B, h, w) -> 4 x (B, h, w) on-the-line."""
+    thick2 = STOPLINE_HALF_THICK * STOPLINE_HALF_THICK
+    hits = []
+    for k_sl in range(RENDER_MAX_LIGHTS):
+        sl = [_col(env_block[:, 2 + k_sl, j]) for j in range(8)]
+        d2 = _seg_dist2_scalar(sl[0], sl[1], sl[2], sl[3], px, py)
+        hits.append((d2 < thick2) & (sl[7] > 0.0))
+    return hits
 
 
 def _composite(px, py, road, env_block, agent_block, wp_block,
                highlight_ego: bool):
     """Overlay stack -> 3 float planes shaped like px."""
-    ego_row = env_block[:, 0]
     wp_hit = _wp_hit(wp_block, px, py)
     npc_hit = _obb_hit(agent_block, px, py)
-
-    relx, rely = px - _col(ego_row[:, 0]), py - _col(ego_row[:, 1])
-    lx = relx * _col(ego_row[:, 2]) + rely * _col(ego_row[:, 3])
-    ly = -relx * _col(ego_row[:, 3]) + rely * _col(ego_row[:, 2])
-    ego_hit = ((torch.abs(lx) <= _col(ego_row[:, 4]))
-               & (torch.abs(ly) <= _col(ego_row[:, 5])))
-
-    thick2 = STOPLINE_HALF_THICK * STOPLINE_HALF_THICK
-    sl_hits = []
-    for k_sl in range(4):
-        sl = [_col(env_block[:, 2 + k_sl, j]) for j in range(8)]
-        d2 = _seg_dist2_scalar(sl[0], sl[1], sl[2], sl[3], px, py)
-        sl_hits.append(((d2 < thick2) & (sl[7] > 0.0), sl))
+    ego_hit = _ego_hit(env_block[:, 0], px, py)
+    sl_hits = _stopline_hits(env_block, px, py)
     ego_color = COLOR_EGO if highlight_ego else COLOR_NPC
     chans = []
     for ch in range(3):
@@ -253,9 +287,9 @@ def _composite(px, py, road, env_block, agent_block, wp_block,
         v = torch.where(road, COLOR_ROAD[ch], v)
         v = torch.where(wp_hit, COLOR_WAYPOINT[ch], v)
         # reverse order => nearest stopline wins on overlap
-        for k_sl in range(3, -1, -1):
-            hit, sl = sl_hits[k_sl]
-            v = torch.where(hit, sl[4 + ch], v)
+        for k_sl in range(RENDER_MAX_LIGHTS - 1, -1, -1):
+            v = torch.where(sl_hits[k_sl], _col(env_block[:, 2 + k_sl, 4 + ch]),
+                            v)
         v = torch.where(npc_hit, COLOR_NPC[ch], v)
         v = torch.where(ego_hit, ego_color[ch], v)
         chans.append(v)
@@ -281,6 +315,86 @@ def render_obs_torch(maps: MapArrays, town, ci, cj, nseg, env_block,
     chans = _composite(px, py, road, env_block, agent_block, wp_block,
                        highlight_ego)
     return torch.stack(chans, dim=1).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# the plain version of the kernel's cull
+# ---------------------------------------------------------------------------
+
+
+class CullMasks(NamedTuple):
+    """What the kernel keeps; T = 16 tiles, tile ``4 * (row // 16) + col // 16``."""
+
+    frame: torch.Tensor      # (B, K) bool: segment rows staged for the frame
+    seg: torch.Tensor        # (B, T, K) bool: ... and tested on the tile
+    agent: torch.Tensor      # (B, T, 16) bool
+    wp: torch.Tensor         # (B, T, 8) bool
+    stopline: torch.Tensor   # (B, T, 4) bool
+    ego: torch.Tensor        # (B, T) bool
+
+
+def cull_masks_torch(maps: MapArrays, town, ci, cj, nseg, env_block,
+                     agent_block, wp_block, res: int = 64, fov: float = 70.0,
+                     left_handed: bool = True,
+                     margin: float = CULL_MARGIN) -> CullMasks:
+    """The cull predicates of ``csrc/rasterizer.cu`` in plain torch.
+
+    A primitive is kept for the frame (a tile) when its distance from the
+    frame's (tile's) centre is at most its own reach plus the half-diagonal
+    between the frame's (tile's) outermost pixel centres plus ``margin``.
+    Half-diagonals scale with the length of the ego's (cos, sin) row, and a
+    box's centre distance with the length of its own, so the predicates
+    stay conservative for rows that are not unit vectors. Nothing on the
+    GPU path calls this function.
+    """
+    seg = maps.seg_data[town.long(), ci.long(), cj.long()]        # (B, K, 8)
+    ego = env_block[:, 0]
+    ego_n2 = ego[:, 2] * ego[:, 2] + ego[:, 3] * ego[:, 3]
+    ego_n = torch.sqrt(ego_n2)
+    m_per_px = fov / res
+    r_frame = (res - 1) / 2.0 * m_per_px * math.sqrt(2.0) * ego_n + margin
+    r_tile = ((CULL_TILE - 1) / 2.0 * m_per_px * math.sqrt(2.0) * ego_n
+              + margin)[:, None]                                   # (B, 1)
+
+    # tile centres (B, T), in the kernel's tile order
+    centre = (torch.arange(res // CULL_TILE, dtype=torch.float32,
+                           device=env_block.device) * CULL_TILE
+              + (CULL_TILE - 1) / 2.0)
+    c_row, c_col = torch.meshgrid(centre, centre, indexing="ij")
+    tcx, tcy = _pixel_world(ego, res, fov, left_handed, c_row, c_col)
+    tcx, tcy = tcx.flatten(1)[:, :, None], tcy.flatten(1)[:, :, None]
+
+    shw2 = seg[..., 4]
+    listed = (torch.arange(seg.shape[1], device=seg.device)
+              < torch.clamp(nseg, 0, seg.shape[1])[:, None]) & (shw2 >= 0.0)
+    hw = torch.sqrt(torch.clamp(shw2, min=0.0))
+    ends = [seg[..., j] for j in range(4)]
+    d2_frame = _seg_dist2_scalar(*ends, ego[:, 0:1], ego[:, 1:2])
+    frame = listed & (d2_frame <= (hw + r_frame[:, None]) ** 2)
+    d2_tile = _seg_dist2_scalar(*(e[:, None] for e in ends), tcx, tcy)
+    seg_tile = frame[:, None] & (d2_tile <= (hw + r_tile)[:, None] ** 2)
+
+    def centre_d2(rows):
+        dx, dy = tcx - rows[:, None, :, 0], tcy - rows[:, None, :, 1]
+        return dx * dx + dy * dy                                   # (B, T, n)
+
+    def box_reach(rows):
+        """(B, n, 8) box rows [x, y, cos, sin, half_len, half_wid, ...]."""
+        n2 = rows[..., 2] * rows[..., 2] + rows[..., 3] * rows[..., 3]
+        lim = (torch.sqrt(rows[..., 4] * rows[..., 4]
+                          + rows[..., 5] * rows[..., 5])
+               + r_tile * torch.sqrt(n2))
+        return centre_d2(rows) * n2[:, None] <= (lim * lim)[:, None]
+
+    agent = (agent_block[:, None, :, 6] > 0.0) & box_reach(agent_block)
+    wp = ((wp_block[:, None, :, 2] > 0.0)
+          & (centre_d2(wp_block) <= ((WAYPOINT_RADIUS + r_tile) ** 2)[:, None]))
+    sl = env_block[:, 2:2 + RENDER_MAX_LIGHTS]
+    d2_sl = _seg_dist2_scalar(*(sl[:, None, :, j] for j in range(4)), tcx, tcy)
+    stopline = ((sl[:, None, :, 7] > 0.0)
+                & (d2_sl <= ((STOPLINE_HALF_THICK + r_tile) ** 2)[:, None]))
+    return CullMasks(frame=frame, seg=seg_tile, agent=agent, wp=wp,
+                     stopline=stopline, ego=box_reach(ego[:, None])[..., 0])
 
 
 # ---------------------------------------------------------------------------
@@ -313,13 +427,11 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device):
         raise ValueError(f"render_obs_cuda: {name} is not contiguous")
 
 
-def render_obs_cuda(maps: MapArrays, town, ci, cj, nseg, env_block,
-                    agent_block, wp_block, res: int = 64, fov: float = 70.0,
-                    left_handed: bool = True,
-                    highlight_ego: bool = True) -> torch.Tensor:
-    """Launch ``csrc/rasterizer.cu`` on CUDA tensors -> (B, 3, res, res)
-    uint8 on the current stream. Raises on tensors elsewhere than the GPU,
-    on any other dtype, shape or layout, and on a failed launch."""
+def _launch(entry: str, maps: MapArrays, town, ci, cj, nseg, env_block,
+            agent_block, wp_block, res, fov, left_handed,
+            highlight_ego) -> torch.Tensor:
+    """Check the tensors and launch the library's ``entry`` on them, on the
+    current stream."""
     seg = maps.seg_data
     dev = env_block.device
     if dev.type != "cuda":
@@ -332,6 +444,8 @@ def render_obs_cuda(maps: MapArrays, town, ci, cj, nseg, env_block,
     n_town, n_cell, _, k_rows, _ = seg.shape
     _check("seg_data", seg, torch.float32, (n_town, n_cell, n_cell, k_rows, 8),
            dev)
+    if seg.data_ptr() % 16:
+        raise ValueError("render_obs_cuda: seg_data is not 16-byte aligned")
     for name, x in (("town", town), ("ci", ci), ("cj", cj), ("nseg", nseg)):
         _check(name, x, torch.int32, (b,), dev)
     _check("env_block", env_block, torch.float32, (b, 8, 8), dev)
@@ -344,7 +458,7 @@ def render_obs_cuda(maps: MapArrays, town, ci, cj, nseg, env_block,
     lib = _build.load_rasterizer()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tde_render_obs(
+        rc = getattr(lib, entry)(
             seg.data_ptr(), town.data_ptr(), ci.data_ptr(), cj.data_ptr(),
             nseg.data_ptr(), env_block.data_ptr(), agent_block.data_ptr(),
             wp_block.data_ptr(), out.data_ptr(),
@@ -353,11 +467,38 @@ def render_obs_cuda(maps: MapArrays, town, ci, cj, nseg, env_block,
     if rc != 0:
         raise RuntimeError(f"rasterizer kernel launch failed: CUDA error {rc} "
                            f"({lib.tde_error_string(rc).decode()})")
-    render_obs_cuda.launches += 1
+    return out
+
+
+def render_obs_cuda(maps: MapArrays, town, ci, cj, nseg, env_block,
+                    agent_block, wp_block, res: int = 64, fov: float = 70.0,
+                    left_handed: bool = True,
+                    highlight_ego: bool = True) -> torch.Tensor:
+    """Launch the culled kernel of ``csrc/rasterizer.cu`` on CUDA tensors ->
+    (B, 3, res, res) uint8 on the current stream. Raises on tensors
+    elsewhere than the GPU, on any other dtype, shape or layout, on a failed
+    build and on a failed launch."""
+    out = _launch("tde_render_obs", maps, town, ci, cj, nseg, env_block,
+                  agent_block, wp_block, res, fov, left_handed, highlight_ego)
+    if out.shape[0]:
+        render_obs_cuda.launches += 1
     return out
 
 
 render_obs_cuda.launches = 0    # kernel launches since the last reset to 0
+
+
+def _render_obs_cuda_fullscan(maps: MapArrays, town, ci, cj, nseg, env_block,
+                              agent_block, wp_block, res: int = 64,
+                              fov: float = 70.0, left_handed: bool = True,
+                              highlight_ego: bool = True) -> torch.Tensor:
+    """The first version of the kernel (every pixel scans every listed
+    segment and every overlay), kept as a second oracle and as the yardstick
+    the culled kernel is timed against. ``render_observation`` never
+    dispatches to it."""
+    return _launch("tde_render_obs_fullscan", maps, town, ci, cj, nseg,
+                   env_block, agent_block, wp_block, res, fov, left_handed,
+                   highlight_ego)
 
 
 # ---------------------------------------------------------------------------
