@@ -33,10 +33,15 @@ def test_the_package_has_the_slice_modules():
                 "ops/collision", "ops/traffic_lights", "ops/offroad",
                 "ops/waypoints", "npc/route_follow", "env/core",
                 "ops/rasterizer", "ops/rasterizer_cuda", "ops/_build",
-                "env/batched"):
+                "env/batched", "models/__init__", "models/cnn",
+                "models/policies", "models/convert", "rl/rollout",
+                "rl/buffer", "rl/sac", "rl/demo", "rl/evaluate",
+                "parallel/train_step"):
         assert f"torchdriveenv_tpu_torch/{mod}.py" in rel, mod
-    assert os.path.exists(os.path.join(ROOT, "torchdriveenv_tpu_torch",
-                                       "csrc", "rasterizer.cu"))
+    for data in ("csrc/rasterizer.cu",
+                 "assets/deliverable_sac_stage1_actor.npz"):
+        assert os.path.exists(os.path.join(ROOT, "torchdriveenv_tpu_torch",
+                                           data)), data
 
 
 @pytest.mark.parametrize("path", _sources(),

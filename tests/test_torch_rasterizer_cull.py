@@ -282,8 +282,8 @@ def test_cull_constants_match_the_cuda_source():
     assert float(margin.group(1)) == trc.CULL_MARGIN
     assert int(tile.group(1)) == trc.CULL_TILE
     assert trc.KERNEL_RES % trc.CULL_TILE == 0
-    # the package never dispatches to the full-scan kernel
-    assert "tde_render_obs_fullscan" in src
+    # the source holds the one kernel the package launches
+    assert src.count("__global__") == 1 and "tde_render_obs(" in src
     with open(trc.__file__) as f:
         py = f.read()
     dispatcher = py[py.index("def render_observation("):]

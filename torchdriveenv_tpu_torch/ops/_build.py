@@ -78,15 +78,13 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
 
 @functools.lru_cache(maxsize=None)
 def load_rasterizer() -> ctypes.CDLL:
-    """The rasterizer library, built at first use: the culled kernel
-    (``tde_render_obs``) and the full-scan kernel it is timed against
-    (``tde_render_obs_fullscan``), with one signature."""
+    """The rasterizer library (``tde_render_obs``), built at first use."""
     build(("rasterizer",))
     lib = ctypes.CDLL(library_path("rasterizer"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tde_render_obs, lib.tde_render_obs_fullscan):
-        fn.argtypes = [vp] * 9 + [ci] * 5 + [ctypes.POINTER(ctypes.c_float), vp]
-        fn.restype = ci
+    lib.tde_render_obs.argtypes = ([vp] * 9 + [ci] * 5
+                                   + [ctypes.POINTER(ctypes.c_float), vp])
+    lib.tde_render_obs.restype = ci
     lib.tde_error_string.argtypes = [ci]
     lib.tde_error_string.restype = ctypes.c_char_p
     return lib

@@ -427,11 +427,10 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device):
         raise ValueError(f"render_obs_cuda: {name} is not contiguous")
 
 
-def _launch(entry: str, maps: MapArrays, town, ci, cj, nseg, env_block,
-            agent_block, wp_block, res, fov, left_handed,
-            highlight_ego) -> torch.Tensor:
-    """Check the tensors and launch the library's ``entry`` on them, on the
-    current stream."""
+def _launch(maps: MapArrays, town, ci, cj, nseg, env_block, agent_block,
+            wp_block, res, fov, left_handed, highlight_ego) -> torch.Tensor:
+    """Check the tensors and launch the kernel on them, on the current
+    stream."""
     seg = maps.seg_data
     dev = env_block.device
     if dev.type != "cuda":
@@ -458,7 +457,7 @@ def _launch(entry: str, maps: MapArrays, town, ci, cj, nseg, env_block,
     lib = _build.load_rasterizer()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(
+        rc = lib.tde_render_obs(
             seg.data_ptr(), town.data_ptr(), ci.data_ptr(), cj.data_ptr(),
             nseg.data_ptr(), env_block.data_ptr(), agent_block.data_ptr(),
             wp_block.data_ptr(), out.data_ptr(),
@@ -474,31 +473,18 @@ def render_obs_cuda(maps: MapArrays, town, ci, cj, nseg, env_block,
                     agent_block, wp_block, res: int = 64, fov: float = 70.0,
                     left_handed: bool = True,
                     highlight_ego: bool = True) -> torch.Tensor:
-    """Launch the culled kernel of ``csrc/rasterizer.cu`` on CUDA tensors ->
+    """Launch the kernel of ``csrc/rasterizer.cu`` on CUDA tensors ->
     (B, 3, res, res) uint8 on the current stream. Raises on tensors
     elsewhere than the GPU, on any other dtype, shape or layout, on a failed
     build and on a failed launch."""
-    out = _launch("tde_render_obs", maps, town, ci, cj, nseg, env_block,
-                  agent_block, wp_block, res, fov, left_handed, highlight_ego)
+    out = _launch(maps, town, ci, cj, nseg, env_block, agent_block, wp_block,
+                  res, fov, left_handed, highlight_ego)
     if out.shape[0]:
         render_obs_cuda.launches += 1
     return out
 
 
 render_obs_cuda.launches = 0    # kernel launches since the last reset to 0
-
-
-def _render_obs_cuda_fullscan(maps: MapArrays, town, ci, cj, nseg, env_block,
-                              agent_block, wp_block, res: int = 64,
-                              fov: float = 70.0, left_handed: bool = True,
-                              highlight_ego: bool = True) -> torch.Tensor:
-    """The first version of the kernel (every pixel scans every listed
-    segment and every overlay), kept as a second oracle and as the yardstick
-    the culled kernel is timed against. ``render_observation`` never
-    dispatches to it."""
-    return _launch("tde_render_obs_fullscan", maps, town, ci, cj, nseg,
-                   env_block, agent_block, wp_block, res, fov, left_handed,
-                   highlight_ego)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,137 @@
+"""Fused off-policy training step (port of the off-policy half of
+``torchdriveenv_tpu/parallel/train_step.py``).
+
+One call steps every env ``steps_per_iter`` times, appends the transitions
+to the replay buffer, and then runs ``updates_per_iter`` gradient updates on
+sampled batches: all on one device, with no host read in between.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from torchdriveenv_tpu_torch.config import EnvConfig
+from torchdriveenv_tpu_torch.env.batched import make_env_fns
+from torchdriveenv_tpu_torch.maps.arrays import Assets, resolve_device
+from torchdriveenv_tpu_torch.models.policies import scale_action, unscale_action
+from torchdriveenv_tpu_torch.rl import buffer as replay
+from torchdriveenv_tpu_torch.rl.rollout import RolloutState, init_stack, update_stack
+
+@dataclasses.dataclass
+class OffPolicyCarry:
+    rollout: RolloutState
+    buffer: replay.ReplayBuffer
+    agent_state: Any                # the agent's own state (agent.state)
+    generator: torch.Generator      # on the envs' device
+    env_steps: int                  # total env steps taken
+
+
+def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
+                             buffer_capacity: int = 10_000,
+                             steps_per_iter: int = 1,
+                             updates_per_iter: int = 1,
+                             demo_fn: Optional[Callable] = None,
+                             demo_steps: int = 0, demo_envs: int = 0,
+                             device=None) -> Tuple[Callable, Callable]:
+    """Build (init_fn, train_step_fn) for an off-policy agent (SAC).
+
+    init_fn(assets, seed) -> OffPolicyCarry
+    train_step_fn(assets, carry) -> (carry, metrics)
+
+    Each train step: ``steps_per_iter`` lockstep env steps appended to the
+    replay buffer, then ``updates_per_iter`` gradient updates on sampled
+    batches. The carry's buffer and agent are updated in place.
+
+    SB3 warmup semantics (``learning_starts``): while the total env steps
+    are below it, actions are drawn uniformly from the action space and no
+    gradient update runs; decided once per train step, before its env steps.
+
+    ``demo_fn`` (optional): scripted state-based driver (rl/demo.py); while
+    the total env steps are below ``demo_steps``, actions come from it
+    instead of the policy, seeding the buffer with demonstrations (updates
+    still start at learning_starts). ``demo_envs`` additionally keeps the
+    first K envs scripted for the whole run.
+
+    ``device=None`` means the GPU; the assets must be on the same device.
+    """
+    dev = resolve_device(device)
+    fs = env_cfg.frame_stack
+    res = env_cfg.simulator.renderer.obs_res
+
+    def check(assets: Assets) -> None:
+        if assets.device.type != dev.type:
+            raise ValueError(f"assets are on {assets.device}, the train step "
+                             f"on {dev}")
+
+    def init_fn(assets: Assets, seed: int = 0) -> OffPolicyCarry:
+        check(assets)
+        generator = torch.Generator(device=assets.device)
+        generator.manual_seed(seed)
+        reset_fn, _ = make_env_fns(env_cfg, assets, render=True)
+        env_state, obs = reset_fn(generator, num_envs)
+        buf = replay.create(num_envs, buffer_capacity, (3, res, res),
+                            device=assets.device)
+        agent_state = agent.init(seed=seed, obs_res=res, device=assets.device)
+        return OffPolicyCarry(
+            rollout=RolloutState(env_state, init_stack(obs, fs)),
+            buffer=buf, agent_state=agent_state, generator=generator,
+            env_steps=0)
+
+    def train_step_fn(assets: Assets, carry: OffPolicyCarry
+                      ) -> Tuple[OffPolicyCarry, Dict[str, torch.Tensor]]:
+        check(assets)
+        _, step_fn = make_env_fns(env_cfg, assets, render=True,
+                                  with_final_obs=True)
+        g = carry.generator
+        warmup = carry.env_steps < agent.cfg.learning_starts
+        demo_mask = None
+        if demo_fn is not None:
+            demo_phase = carry.env_steps < demo_steps
+            demo_mask = (torch.arange(num_envs, device=assets.device)
+                         < (num_envs if demo_phase else demo_envs))
+
+        rs, buf = carry.rollout, carry.buffer
+        rewards = []
+        for _ in range(steps_per_iter):
+            with torch.no_grad():
+                if warmup:
+                    a = torch.rand((num_envs, 2), generator=g,
+                                   device=assets.device) * 2.0 - 1.0
+                else:
+                    a = agent.select_action(rs.obs_stack, g)
+                if demo_fn is not None:
+                    a_demo = torch.clamp(
+                        unscale_action(demo_fn(rs.env_state)), -1.0, 1.0)
+                    a = torch.where(demo_mask[:, None], a_demo, a)
+                out = step_fn(rs.env_state, scale_action(a), g)
+                done = out.terminated | out.truncated
+                cur_frame = rs.obs_stack[:, -3:]
+                buf = replay.add(buf, cur_frame, a, out.reward, done,
+                                 out.terminated, out.final_obs,
+                                 demo_mask=demo_mask)
+                rs = RolloutState(out.state,
+                                  update_stack(rs.obs_stack, out.obs, done))
+            rewards.append(out.reward)
+
+        if warmup:
+            zero = torch.zeros((), device=assets.device)
+            metrics = {k: zero for k in agent.metric_names}
+        else:
+            rows = []
+            for _ in range(updates_per_iter):
+                batch = replay.sample(buf, agent.cfg.batch_size, fs,
+                                      generator=g)
+                rows.append(agent.update(batch, generator=g))
+            metrics = {k: torch.stack([r[k] for r in rows]).mean()
+                       for k in rows[0]}
+        metrics["mean_step_reward"] = torch.stack(rewards).mean()
+
+        new_carry = OffPolicyCarry(
+            rollout=rs, buffer=buf, agent_state=agent.state, generator=g,
+            env_steps=carry.env_steps + steps_per_iter * num_envs)
+        return new_carry, metrics
+
+    return init_fn, train_step_fn
