@@ -34,16 +34,37 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              episodes of 200 steps. Launch counts are set to 0 before each
              train step and before the evaluation and read after: 2 per env
              step in training, 1 per step in evaluation.
-Then it prints one JSON line describing each kernel and both paths, the
+  5. train   the training CLI's function (rl/train.py:train) on the card,
+             from configs that equal the repo's YAML files (RECIPES below;
+             where PyYAML imports, the files themselves are loaded and
+             compared) with only total_timesteps, log_dir, checkpoint_dir,
+             the callbacks' n_steps and record overridden. PPO at full width
+             (examples/env_configs/tpu_scale/ppo_1024.yml: 1024 envs, 32
+             steps per rollout, 4 epochs of minibatches of 8192, bf16 torso):
+             3 train steps, its model_* and full_latest written, one traced
+             train step, then one more train step resumed from full_latest.
+             A2C and TD3 from artifacts/{a2c,td3}_short_run.yml (10 envs) for
+             about three thousand env steps each. Every train step is timed
+             with CUDA events (rollout / update split at the first
+             agent.update) and must launch the rasterizer twice per env step.
+Then it prints one JSON line describing each kernel and the paths, the
 card's name and power limit, and as the last line {"ok": true, "device":
 {...}}.
 """
 
+import contextlib
+import copy
+import dataclasses
+import importlib
 import json
 import math
 import os
 import sys
+import tempfile
 import time
+import traceback
+import types
+import warnings
 
 import torch
 
@@ -98,16 +119,70 @@ def rasterizer_bound_ms(maps, town, ci, cj, nseg):
             t_bytes * 1e3, t_ops * 1e3)
 
 
-# the stage-1 SAC recipe (artifacts/sac_stage1_run.yml) as constructor
-# arguments
-RECIPE_ENVS = 128
-RECIPE_CAPACITY = 400_000 // RECIPE_ENVS        # 3125 cells per env
-RECIPE_BATCH = 512
-RECIPE_STEPS_PER_ITER = 4
-RECIPE_UPDATES_PER_ITER = 64
-RECIPE_DEMO_ENVS = 16
-RECIPE_DEMO_STEPS = 100_000
-RECIPE_SEED = 29
+# The training recipes this script drives, as their YAML files parse
+# (tests/test_torch_config.py holds each dict equal to yaml.safe_load of the
+# file it is keyed by; PyYAML reads "5e7" and "2e6" as strings).
+_ENV = dict(ego_only=False, max_environment_steps=200, frame_stack=3,
+            distance_cutoff=0.25, use_background_traffic=True,
+            terminated_at_infraction=True)
+
+
+def _short_run(algorithm: str) -> dict:
+    return dict(
+        algorithm=algorithm, checkpoint_dir=f"artifacts/{algorithm}_short_ckpt",
+        env=dict(_ENV, seed=5),
+        eval_train_callback=dict(eval_n_episodes=10, n_steps=10000),
+        eval_val_callback=dict(eval_n_episodes=10, n_steps=10000),
+        log_dir="artifacts/runs", parallel_env_num=10,
+        project="torchdriveenv_tpu", total_timesteps=150000,
+        wandb_callback=dict(model_save_freq=50000))
+
+
+RECIPES = {
+    "examples/env_configs/tpu_scale/ppo_1024.yml": dict(
+        algorithm="ppo", parallel_env_num=1024, total_timesteps="5e7",
+        project="torchdriveenv_tpu",
+        algo_kwargs=dict(n_steps=32, batch_size=8192, n_epochs=4),
+        env=dict(_ENV),
+        eval_train_callback=dict(n_steps=1000000, eval_n_episodes=20),
+        eval_val_callback=dict(n_steps=1000000, eval_n_episodes=20),
+        wandb_callback=dict(model_save_freq=1000000)),
+    "artifacts/a2c_short_run.yml": _short_run("a2c"),
+    "artifacts/td3_short_run.yml": _short_run("td3"),
+    "artifacts/sac_stage1_run.yml": dict(
+        algorithm="sac", parallel_env_num=128, total_timesteps="2e6",
+        project="torchdriveenv_tpu",
+        checkpoint_dir="artifacts/sac_stage1_ckpt", log_dir="artifacts/runs",
+        offpolicy_steps_per_iter=4, offpolicy_updates_per_iter=64,
+        demo_envs=16, demo_warmup_steps=100000,
+        algo_kwargs=dict(batch_size=512, buffer_size=400000, gamma=0.99,
+                         fixed_alpha=0.02, actor_delay_updates=1000000000,
+                         bc_coef=50.0),
+        env=dict(_ENV, seed=29),
+        eval_train_callback=dict(n_steps=50000, eval_n_episodes=10),
+        eval_val_callback=dict(n_steps=50000, eval_n_episodes=25),
+        wandb_callback=dict(model_save_freq=100000),
+        full_snapshot_every=-1),
+}
+PPO_YML = "examples/env_configs/tpu_scale/ppo_1024.yml"
+A2C_YML = "artifacts/a2c_short_run.yml"
+TD3_YML = "artifacts/td3_short_run.yml"
+SAC_YML = "artifacts/sac_stage1_run.yml"
+
+# the [learner] phase's sizes: the stage-1 SAC recipe's
+_SAC = RECIPES[SAC_YML]
+RECIPE_ENVS = _SAC["parallel_env_num"]
+RECIPE_CAPACITY = _SAC["algo_kwargs"]["buffer_size"] // RECIPE_ENVS   # 3125 cells per env
+RECIPE_BATCH = _SAC["algo_kwargs"]["batch_size"]
+RECIPE_STEPS_PER_ITER = _SAC["offpolicy_steps_per_iter"]
+RECIPE_UPDATES_PER_ITER = _SAC["offpolicy_updates_per_iter"]
+RECIPE_DEMO_ENVS = _SAC["demo_envs"]
+RECIPE_DEMO_STEPS = _SAC["demo_warmup_steps"]
+RECIPE_SEED = _SAC["env"]["seed"]
+# the [train] phase's depth
+PPO_TRAIN_STEPS = 3
+A2C_TRAIN_STEPS = 12
+TD3_TRAIN_STEPS = 40
 EVAL_EPISODES = 25
 EVAL_STEPS = 200
 
@@ -120,11 +195,8 @@ def check(cond, msg: str) -> None:
 def learner_phase(assets, env, state, act, card) -> dict:
     """Phase 4: the SAC learner path on the card. ``env`` / ``state`` are the
     main path's 4096-env batch, ``act`` its constant action."""
-    import tempfile
-    import types
-
     from torchdriveenv_tpu_torch.bench import profile_steps
-    from torchdriveenv_tpu_torch.config import EnvConfig
+    from torchdriveenv_tpu_torch.config import EnvConfig, construct_rl_training_config
     from torchdriveenv_tpu_torch.env.batched import make_env_fns
     from torchdriveenv_tpu_torch.maps.arrays import load_assets
     from torchdriveenv_tpu_torch.models import load_actor
@@ -171,10 +243,8 @@ def learner_phase(assets, env, state, act, card) -> dict:
     del stack, out, a32, a16
 
     # ---- b. SAC trains at the recipe's real size -------------------------
-    cfg = EnvConfig(distance_cutoff=0.25)
-    agent = SAC(SACConfig(batch_size=RECIPE_BATCH, buffer_size=400_000, gamma=0.99,
-                          fixed_alpha=0.02, bc_coef=50.0,
-                          actor_delay_updates=10 ** 9, learning_starts=100))
+    cfg = construct_rl_training_config(_SAC).env
+    agent = SAC(SACConfig(**_SAC["algo_kwargs"]))
     demo_fn = make_scripted_driver(cfg, assets)
     fns = dict(buffer_capacity=RECIPE_CAPACITY,
                steps_per_iter=RECIPE_STEPS_PER_ITER,
@@ -404,6 +474,361 @@ def learner_phase(assets, env, state, act, card) -> dict:
     return result
 
 
+def optional_packages() -> dict:
+    """Which of the optional packages import on this machine."""
+    have = {}
+    for name in ("yaml", "PIL", "tensorboard", "wandb"):
+        try:
+            importlib.import_module(name)
+            have[name] = True
+        except ImportError:
+            have[name] = False
+    return have
+
+
+@contextlib.contextmanager
+def probed_train(train_mod, rc):
+    """While active, the train step that ``rl.train.train`` builds is
+    wrapped: CUDA events around every call and at its first
+    ``agent.update``, and the rasterizer's launches per call. Nothing
+    synchronizes inside the run; the events are read afterwards. Yields a
+    namespace with ``rows`` [(start, first update, end, launches)], the
+    plain ``train_fn``, the ``agent``, the ``assets`` and the agent's state
+    right after ``init_fn``."""
+    probe = types.SimpleNamespace(rows=[], train_fn=None, agent=None,
+                                  assets=None, initial=None, mark=None)
+    names = ("make_onpolicy_train_fns", "make_offpolicy_train_fns")
+    plain = {n: getattr(train_mod, n) for n in names}
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def wrap(factory):
+        def wrapped(env_cfg, agent, *args, **kw):
+            init_fn, train_fn = factory(env_cfg, agent, *args, **kw)
+            plain_update = agent.update
+
+            def marked_update(*a, **k):
+                if probe.mark is None:
+                    probe.mark = event()
+                return plain_update(*a, **k)
+
+            def probed_init(assets, seed=0):
+                carry = init_fn(assets, seed)
+                probe.initial = agent.export_state()
+                return carry
+
+            def timed(assets, carry):
+                probe.mark = None
+                n0 = rc.render_obs_cuda.launches
+                e0 = event()
+                out = train_fn(assets, carry)
+                probe.rows.append((e0, probe.mark, event(),
+                                   rc.render_obs_cuda.launches - n0))
+                return out
+
+            agent.update = marked_update
+            probe.train_fn, probe.agent = train_fn, agent
+            return probed_init, timed
+        return wrapped
+
+    plain_load = train_mod.load_assets
+
+    def load_assets(suite, **kw):
+        assets = plain_load(suite, **kw)
+        if suite == "train":
+            probe.assets = assets
+        return assets
+
+    for n in names:
+        setattr(train_mod, n, wrap(plain[n]))
+    train_mod.load_assets = load_assets
+    try:
+        yield probe
+    finally:
+        for n in names:
+            setattr(train_mod, n, plain[n])
+        train_mod.load_assets = plain_load
+
+
+def train_phase(card, have) -> dict:
+    """Phase 5: ``rl.train.train`` on the card for PPO (full width), A2C
+    and TD3, from RECIPES."""
+    from torchdriveenv_tpu_torch import config as tconfig
+    from torchdriveenv_tpu_torch.bench import profile_steps
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    from torchdriveenv_tpu_torch.rl import train as train_mod
+
+    if have["yaml"]:            # the files themselves give the same configs
+        for path, raw in RECIPES.items():
+            from_file = tconfig.load_rl_training_config(path)
+            check(dataclasses.asdict(from_file) == dataclasses.asdict(
+                tconfig.construct_rl_training_config(copy.deepcopy(raw))),
+                f"{path} and its dict in this script differ")
+        log(f"[train] {len(RECIPES)} YAML files load to the configs of RECIPES")
+
+    def config_of(path, tmp, total):
+        """The recipe with the overrides this phase allows itself: the
+        depth, where it writes, one evaluation at the start, no video."""
+        raw = copy.deepcopy(RECIPES[path])
+        raw.update(total_timesteps=total, log_dir=os.path.join(tmp, "runs"),
+                   checkpoint_dir=os.path.join(tmp, "ckpt"))
+        raw["eval_val_callback"].update(n_steps=10 ** 9, record=False)
+        raw["eval_train_callback"].update(n_steps=10 ** 9)
+        return tconfig.construct_rl_training_config(raw)
+
+    def run(name, cfg, other_launches, **kw):
+        """One ``train`` call -> (carry, probe, per-step rows of ms, the
+        JSONL records). Launch counts are set to 0 just before and read
+        just after; ``other_launches``: those outside the train steps."""
+        with probed_train(train_mod, rc) as probe:
+            torch.cuda.synchronize()
+            rc.render_obs_cuda.launches = 0
+            t0 = time.perf_counter()
+            carry = train_mod.train(cfg, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = rc.render_obs_cuda.launches
+        rows = []
+        for e0, mark, e1, n in probe.rows:
+            total = e0.elapsed_time(e1)
+            roll = e0.elapsed_time(mark) if mark is not None else total
+            rows.append(dict(ms=total, rollout_ms=roll, update_ms=total - roll,
+                             rasterizer_launches=n))
+        logs = sorted(f for f in os.listdir(cfg.log_dir) if f.endswith(".jsonl"))
+        with open(os.path.join(cfg.log_dir, logs[-1])) as f:
+            records = [json.loads(line) for line in f]
+        for rec in records:
+            check(all(math.isfinite(v) for v in rec.values()),
+                  f"{name}: non-finite value in {rec}")
+        for prefix in ("train/", "eval/", "eval_train/"):
+            check(any(k.startswith(prefix) for r in records for k in r),
+                  f"{name}: no {prefix} record")
+        check(any("eval/success_case_0" in r for r in records),
+              f"{name}: no per-case validation record")
+        in_steps = sum(r["rasterizer_launches"] for r in rows)
+        check(launches == in_steps + other_launches,
+              f"{name}: {launches} launches, {in_steps} in train steps")
+        log(f"[train] {name}: {len(rows)} train steps in {wall:.1f} s wall "
+            f"(evaluations and checkpoints included), rasterizer launches "
+            f"{launches} = {in_steps} in train steps + {other_launches} at "
+            f"the first reset and in the two evaluations [{card}]")
+        launched[name] = launches
+        return carry, probe, rows, records
+
+    def moved(before, after):
+        return any(not torch.equal(before[k], after[k]) for k in before)
+
+    # outside its train steps a run launches the rasterizer at the first
+    # reset and, in each of its two evaluations, at the reset and every step
+    eval_launches = 1 + 2 * (_ENV["max_environment_steps"] + 1)
+    launched = {}
+    result = {"optional_packages": have, "rasterizer_launches": launched}
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- PPO at full width ----------------------------------------------
+    ppo = RECIPES[PPO_YML]
+    n_envs, n_steps = ppo["parallel_env_num"], ppo["algo_kwargs"]["n_steps"]
+    per_step = n_envs * n_steps
+    grad_steps = (ppo["algo_kwargs"]["n_epochs"]
+                  * (per_step // ppo["algo_kwargs"]["batch_size"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config_of(PPO_YML, tmp, PPO_TRAIN_STEPS * per_step)
+        carry, probe, rows, records = run("PPO", cfg, eval_launches)
+        for i, r in enumerate(rows):
+            log(f"[train] PPO train step {i + 1}: {r['ms']:.1f} ms on the "
+                f"device's clock = rollout {r['rollout_ms']:.1f} "
+                f"({r['rollout_ms'] / n_steps:.2f} per env step) + update "
+                f"{r['update_ms']:.1f} ({r['update_ms'] / grad_steps:.2f} per "
+                f"gradient step); rasterizer launches "
+                f"{r['rasterizer_launches']} [{card}]")
+            check(r["rasterizer_launches"] == 2 * n_steps,
+                  f"PPO: {r['rasterizer_launches']} launches in a train step")
+        last = [r for r in records if "train/loss" in r][-1]
+        log("[train] PPO last train record: "
+            + ", ".join(f"{k[6:]} {v:.4g}" for k, v in last.items()
+                        if k.startswith("train/")))
+        check(len(rows) == PPO_TRAIN_STEPS
+              and carry.env_steps == PPO_TRAIN_STEPS * per_step, "PPO: depth")
+        check(carry.rollout.obs_stack.shape == (n_envs, 9, 64, 64),
+              "PPO: frame stacks")
+        after = probe.agent.export_state()
+        check(moved(probe.initial["net"], after["net"]), "PPO: parameters")
+        check(not torch.equal(probe.initial["net"]["log_std"],
+                              after["net"]["log_std"]), "PPO: log_std")
+        check(after["opt"]["step"] == PPO_TRAIN_STEPS * grad_steps
+              and after["step"] == PPO_TRAIN_STEPS,
+              f"PPO: Adam count {after['opt']['step']}")
+        check(probe.agent.state.net.torso.compute_dtype == torch.bfloat16,
+              "PPO: the torso's dtype")
+        model = os.path.join(cfg.checkpoint_dir, f"model_{carry.env_steps}")
+        full = os.path.join(cfg.checkpoint_dir, "full_latest")
+        check(os.path.isfile(model) and os.path.isfile(full),
+              "PPO: checkpoint files")
+        rollout_gb = per_step * 9 * 64 * 64 / 1e9
+        log(f"[train] PPO: {n_envs} envs x {n_steps} steps = {per_step} "
+            f"transitions per train step ({rollout_gb:.2f} GB of stacked "
+            f"frames), {grad_steps} gradient steps of "
+            f"{ppo['algo_kwargs']['batch_size']}; Adam count "
+            f"{after['opt']['step']}; model_{carry.env_steps} "
+            f"{os.path.getsize(model) / 1e6:.1f} MB, full_latest "
+            f"{os.path.getsize(full) / 1e6:.1f} MB; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+
+        # where the device's time goes in one more train step of that carry
+        prof = profile_steps(
+            lambda c, _a, _g: types.SimpleNamespace(
+                state=probe.train_fn(probe.assets, c)[0]),
+            carry, None, None, 1, os.path.join(tmp, "ppo_train_step.json"))
+        log(f"[train] one traced PPO train step: window "
+            f"{prof['window_s'] * 1e3:.1f} ms, device busy "
+            f"{prof['device_busy_s'] * 1e3:.1f} ms, idle share "
+            f"{prof['device_idle_share']:.3f}, "
+            f"{prof['kernel_launches_per_step']:.0f} kernel launches; top: "
+            + "; ".join(f"{n[:40]} {ms:.2f} ms x{c}"
+                        for n, ms, c in prof["top_kernels_ms_per_step"][:4])
+            + f" [{card}]")
+        # and one more with every synchronizing call reported. A train step
+        # must not read the device from the host; what is left are the two
+        # uploads per env step of the stoplines' palette in
+        # ops/rasterizer_cuda.py:prepare_obs_inputs (one per render).
+        syncs = []
+
+        def note(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message).lower():
+                inside = [f"{os.path.basename(f.filename)}:{f.lineno}"
+                          for f in traceback.extract_stack()
+                          if "torchdriveenv_tpu_torch" in f.filename]
+                if inside:          # not the mode's own notice
+                    syncs.append(inside[-1])
+
+        plain_show = warnings.showwarning
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                carry, _ = probe.train_fn(probe.assets, carry)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                warnings.showwarning = plain_show
+        torch.cuda.synchronize()
+        where = {w: syncs.count(w) for w in sorted(set(syncs))}
+        log(f"[train] one PPO train step with synchronizing calls reported: "
+            f"{len(syncs)}: {where}")
+        check(all(w.startswith("rasterizer_cuda.py") for w in syncs)
+              and len(syncs) <= 2 * n_steps,
+              f"PPO: host reads inside a train step: {where}")
+        del carry, probe
+
+        # resumed from full_latest: one more train step of the same run
+        cfg2 = config_of(PPO_YML, tmp, (PPO_TRAIN_STEPS + 1) * per_step)
+        carry2, probe2, rows2, _ = run("PPO resumed", cfg2, eval_launches,
+                                       resume_from=full)
+        check(len(rows2) == 1 and rows2[0]["rasterizer_launches"] == 2 * n_steps,
+              "PPO resumed: one train step")
+        check(carry2.env_steps == (PPO_TRAIN_STEPS + 1) * per_step,
+              f"PPO resumed: env_steps {carry2.env_steps}")
+        resumed = probe2.agent.export_state()
+        check(resumed["opt"]["step"] == (PPO_TRAIN_STEPS + 1) * grad_steps
+              and resumed["step"] == PPO_TRAIN_STEPS + 1,
+              f"PPO resumed: Adam count {resumed['opt']['step']}")
+        check(moved(after["net"], resumed["net"]), "PPO resumed: parameters")
+        log(f"[train] PPO resumed from full_latest: env steps "
+            f"{PPO_TRAIN_STEPS * per_step} -> {carry2.env_steps}, Adam count "
+            f"{resumed['opt']['step']}, train step {rows2[0]['ms']:.1f} ms")
+        del carry2, probe2
+    steady = rows[1:]
+    result["ppo_1024"] = dict(
+        source=PPO_YML, num_envs=n_envs, n_steps=n_steps,
+        batch_size=ppo["algo_kwargs"]["batch_size"],
+        gradient_steps_per_train_step=grad_steps, rollout_frames_gb=rollout_gb,
+        train_steps=rows, resumed_train_step=rows2[0],
+        mean_ms_after_first={k: sum(r[k] for r in steady) / len(steady)
+                             for k in ("ms", "rollout_ms", "update_ms")},
+        env_steps_per_s_after_first=per_step * len(steady)
+        / (sum(r["ms"] for r in steady) * 1e-3),
+        rasterizer_launches_per_train_step=2 * n_steps,
+        synchronizing_calls_in_a_train_step=where,
+        traced_step=dict(window_ms=prof["window_s"] * 1e3,
+                         device_busy_ms=prof["device_busy_s"] * 1e3,
+                         device_idle_share=prof["device_idle_share"],
+                         kernel_launches=prof["kernel_launches_per_step"],
+                         top_kernels=prof["top_kernels_ms_per_step"][:6]),
+        last_metrics={k[6:]: v for k, v in last.items()
+                      if k.startswith("train/")})
+
+    # ---- A2C and TD3 from their short-run recipes -------------------------
+    from torchdriveenv_tpu_torch.rl.a2c import A2CConfig
+    from torchdriveenv_tpu_torch.rl.td3 import TD3Config
+    for name, path, depth, steps_per_iter in (
+            ("A2C", A2C_YML, A2C_TRAIN_STEPS, A2CConfig().n_steps),
+            ("TD3", TD3_YML, TD3_TRAIN_STEPS,
+             tconfig.RlTrainingConfig().offpolicy_steps_per_iter)):
+        n_envs = RECIPES[path]["parallel_env_num"]
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = config_of(path, tmp, depth * steps_per_iter * n_envs)
+            carry, probe, rows, records = run(name, cfg, eval_launches)
+            check(len(rows) == depth
+                  and carry.env_steps == depth * steps_per_iter * n_envs,
+                  f"{name}: depth")
+            for r in rows:
+                check(r["rasterizer_launches"] == 2 * steps_per_iter,
+                      f"{name}: {r['rasterizer_launches']} launches in a "
+                      "train step")
+            after = probe.agent.export_state()
+            files = sorted(os.listdir(cfg.checkpoint_dir))
+            check(f"model_{carry.env_steps}" in files
+                  and "full_latest" in files, f"{name}: checkpoint files")
+            if name == "A2C":
+                check(moved(probe.initial["net"], after["net"]),
+                      "A2C: parameters")
+                check(after["opt"]["step"] == depth == after["step"],
+                      f"A2C: Adam count {after['opt']['step']}")
+                counts = dict(adam=after["opt"]["step"])
+            else:
+                warm = -(-TD3Config().learning_starts
+                         // (steps_per_iter * n_envs))    # train steps of warmup
+                updates = (depth - warm) * \
+                    tconfig.RlTrainingConfig().offpolicy_updates_per_iter
+                for k in ("actor", "critic", "target_actor", "target_critic"):
+                    check(moved(probe.initial[k], after[k]), f"TD3: {k}")
+                check(after["step"] == updates
+                      == after["critic_opt"]["step"],
+                      f"TD3: {after['step']} updates")
+                # the actor steps on even updates only
+                check(after["actor_opt"]["step"] == updates // 2,
+                      f"TD3: actor Adam count {after['actor_opt']['step']}")
+                check(int(carry.buffer.pos) == depth * steps_per_iter,
+                      "TD3: buffer position")
+                counts = dict(updates=updates,
+                              critic_adam=after["critic_opt"]["step"],
+                              actor_adam=after["actor_opt"]["step"],
+                              buffer_frames_gb=carry.buffer.frames.numel() / 1e9)
+            learn = rows[-max(depth // 2, 1):]
+            mean = {k: sum(r[k] for r in learn) / len(learn)
+                    for k in ("ms", "rollout_ms", "update_ms")}
+            last = [r for r in records if any(k.startswith("train/")
+                                              for k in r)][-1]
+            log(f"[train] {name}: {n_envs} envs, {steps_per_iter} env steps "
+                f"per train step, {depth} train steps = {carry.env_steps} "
+                f"env steps; mean of the last {len(learn)}: {mean['ms']:.1f} "
+                f"ms = rollout {mean['rollout_ms']:.1f} + update "
+                f"{mean['update_ms']:.1f}; " + ", ".join(
+                    f"{k} {v}" for k, v in counts.items()) + "; last record: "
+                + ", ".join(f"{k[6:]} {v:.4g}" for k, v in last.items()
+                            if k.startswith("train/")) + f" [{card}]")
+            result[name.lower()] = dict(
+                source=path, num_envs=n_envs, train_steps=depth,
+                env_steps=carry.env_steps, mean_ms_last_half=mean,
+                rasterizer_launches_per_train_step=2 * steps_per_iter,
+                **counts)
+            del carry, probe
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -422,6 +847,9 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    have = optional_packages()
+    log("optional packages that import here: "
+        + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in have.items()))
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -645,6 +1073,8 @@ def main() -> int:
         raise AssertionError("with_final_obs path did not render as expected")
 
     learner = learner_phase(assets, env, state, act, card)
+    del env, state, fenv, fstate, fout, out
+    trained = train_phase(card, have)
 
     print(json.dumps({"kernels": [{
         "name": "rasterizer",
@@ -668,7 +1098,7 @@ def main() -> int:
                       TIMED_STEPS, "num_envs": N_ENVS, "obs_checksum": checksum,
                       "phases_ms": phases,
                       "nseg_mean": main_cmp["nseg_mean"]},
-        "learner_path": learner}), flush=True)
+        "learner_path": learner, "train_path": trained}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@ checkpoint is restored with orbax here, carried across, and the port's actor
 must act like the JAX package's (deterministic actions at f32, atol 1e-4).
 The shipped ``.npz`` must be that conversion, bit for bit, both directions
 must round-trip exactly, and a whole ``SACState`` must carry its optax Adam
-states into ``torch.optim.Adam``'s.
+states into ``torch.optim.Adam``'s. So must a ``PPOState`` / ``A2CState``,
+whose Adam state sits behind the clip of an ``optax.chain``, and a
+``TD3State``, live and as a checkpoint restores them.
 """
 
 import os
@@ -194,3 +196,110 @@ def test_live_jax_state_converts_like_a_restored_one():
     assert conv["actor_opt"]["step"] == 0
     assert conv["actor"]["torso.fc.weight"].shape == (512, 2 * 2 * 64)
     assert set(conv["alpha_opt"]["exp_avg"]) == {""}
+
+
+# --------------------------------------------------------------------------
+# PPO / A2C (a chained optimizer) and TD3 states
+# --------------------------------------------------------------------------
+
+
+def _np_tree(state, keys):
+    return {k: jax.tree.map(np.asarray, getattr(state, k)) for k in keys}
+
+
+@pytest.mark.parametrize("form", ["live", "restored"])
+def test_adam_state_is_found_behind_a_clip(form, tmp_path):
+    """``optax.chain(clip_by_global_norm, adam)`` nests Adam's state one
+    level down: ``(EmptyState, (ScaleByAdamState, EmptyState))`` live,
+    ``[None, [{count, mu, nu}, None]]`` once a checkpoint restored it."""
+    from torchdriveenv_tpu.rl import ppo as jppo
+    jstate = jppo.PPO().init(jax.random.PRNGKey(0), obs_res=16)
+    # moments that tell parameters apart, and a count
+    leaves, treedef = jax.tree.flatten(jstate.params)
+    mu = jax.tree.unflatten(treedef, [jnp.full_like(x, i + 1.0)
+                                      for i, x in enumerate(leaves)])
+    adam = jstate.opt[1][0]._replace(count=jnp.asarray(7, jnp.int32), mu=mu,
+                                     nu=jax.tree.map(lambda x: x * x, mu))
+    jstate = jstate.replace(opt=(jstate.opt[0], (adam, jstate.opt[1][1])),
+                            step=jnp.asarray(3, jnp.int32))
+    tree = _np_tree(jstate, ("params", "opt", "step"))
+    if form == "restored":
+        path = str(tmp_path / "ppo_state")
+        ocp.PyTreeCheckpointer().save(path, tree)
+        tree = ocp.PyTreeCheckpointer().restore(path)
+        assert tree["opt"][0] is None and isinstance(tree["opt"][1], list)
+    count, mu_found, _ = convert._adam_fields(tree["opt"])
+    assert int(count) == 7
+    conv = convert.ppo_state_to_torch(tree, 16)
+    assert conv["step"] == 3 and conv["opt"]["step"] == 7
+    assert sorted(conv["net"]) == sorted(conv["opt"]["exp_avg"])
+    assert "log_std" in conv["net"] and conv["net"]["log_std"].shape == (2,)
+    np.testing.assert_array_equal(
+        conv["opt"]["exp_avg"]["torso.conv1.weight"].numpy(),
+        np.asarray(mu_found["params"]["torso"]["conv1"]["kernel"]
+                   ).transpose(3, 2, 0, 1))
+    # ... and back, in the restored form, exactly
+    back = convert.ppo_state_from_torch(conv, 16)
+    assert back["opt"][0] is None and back["opt"][1][1] is None
+    if form == "restored":
+        _assert_trees_equal(back, tree)
+    else:
+        _assert_trees_equal(back["params"], tree["params"])
+        _assert_trees_equal(back["opt"][1][0]["mu"], mu_found)
+    assert convert.a2c_state_to_torch is convert.ppo_state_to_torch
+
+
+def test_ppo_state_loads_into_the_agent_and_comes_back():
+    from torchdriveenv_tpu.rl import a2c as ja2c
+    from torchdriveenv_tpu_torch.rl.a2c import A2C
+    jstate = ja2c.A2C().init(jax.random.PRNGKey(1), obs_res=20)
+    tree = _np_tree(jstate, ("params", "opt", "step"))
+    agent = A2C(compute_dtype=torch.float32)
+    agent.init(seed=0, obs_res=20, device="cpu")
+    agent.load_state(convert.a2c_state_to_torch(tree, 20))
+    back = convert.a2c_state_from_torch(agent.export_state(), 20)
+    _assert_trees_equal(back["params"], tree["params"])
+    count, mu, nu = convert._adam_fields(tree["opt"])
+    assert int(back["opt"][1][0]["count"]) == int(count) == 0
+    _assert_trees_equal(back["opt"][1][0]["mu"], mu)
+    _assert_trees_equal(back["opt"][1][0]["nu"], nu)
+    with pytest.raises(ValueError, match="no Adam state"):
+        convert._adam_fields([None, [None, None]])
+
+
+def test_whole_td3_state_round_trips(tmp_path):
+    from torchdriveenv_tpu.rl import td3 as jtd3
+    from torchdriveenv_tpu_torch.rl.td3 import TD3
+    keys = ("actor_params", "target_actor_params", "critic_params",
+            "target_critic_params", "actor_opt", "critic_opt", "step")
+    jagent = jtd3.TD3()
+    jstate = jagent.init(jax.random.PRNGKey(2), obs_res=20)
+    rng = np.random.default_rng(0)
+    batch = dict(
+        obs=rng.integers(0, 256, (4, 9, 20, 20), dtype=np.uint8),
+        next_obs=rng.integers(0, 256, (4, 9, 20, 20), dtype=np.uint8),
+        action=rng.uniform(-1, 1, (4, 2)).astype(np.float32),
+        reward=rng.normal(size=4).astype(np.float32),
+        discount_mask=np.ones(4, np.float32))
+    # one update: non-zero moments, targets that differ from their nets
+    jstate, _ = jax.jit(jagent.update)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+        jax.random.PRNGKey(3))
+    path = str(tmp_path / "td3_state")
+    ocp.PyTreeCheckpointer().save(path, _np_tree(jstate, keys))
+    tree = ocp.PyTreeCheckpointer().restore(path)
+    conv = convert.td3_state_to_torch(tree, 20)
+    assert conv["step"] == 1 and conv["critic_opt"]["step"] == 1
+    assert conv["actor_opt"]["step"] == 1            # update 0 moves the actor
+    assert not torch.equal(conv["actor"]["mu.weight"],
+                           conv["target_actor"]["mu.weight"])
+    agent = TD3(compute_dtype=torch.float32)
+    agent.init(seed=0, obs_res=20, device="cpu")
+    st = agent.load_state(conv)
+    for name, p in st.critic.named_parameters():
+        s = st.critic_opt.state[p]
+        assert float(s["step"]) == 1.0 and s["step"].device.type == "cpu"
+        assert torch.equal(s["exp_avg"], conv["critic_opt"]["exp_avg"][name])
+    assert st.critic_opt.state[st.critic.q1_out.weight]["exp_avg"].abs().sum() > 0
+    back = convert.td3_state_from_torch(agent.export_state(), 20)
+    _assert_trees_equal(back, tree)

@@ -36,7 +36,8 @@ def test_the_package_has_the_slice_modules():
                 "env/batched", "models/__init__", "models/cnn",
                 "models/policies", "models/convert", "rl/rollout",
                 "rl/buffer", "rl/sac", "rl/demo", "rl/evaluate",
-                "parallel/train_step"):
+                "parallel/train_step", "rl/optim", "rl/ppo", "rl/a2c",
+                "rl/td3", "rl/train", "utils/__init__", "utils/video"):
         assert f"torchdriveenv_tpu_torch/{mod}.py" in rel, mod
     for data in ("csrc/rasterizer.cu",
                  "assets/deliverable_sac_stage1_actor.npz"):
@@ -52,3 +53,32 @@ def test_no_jax_imports(path):
     for name in _imported(tree):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+def _module_level_imports(tree):
+    """Imports that run when the module is imported (not inside a def)."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        stack.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_optional_packages_are_imported_inside_functions(path):
+    """PyYAML, PIL, TensorBoard and wandb are not promised on the GPU
+    machine: no module needs them to be imported, only the function that
+    uses them (``config.py`` imports without ``yaml``, ``rl/train.py``
+    without a log sink, ``utils/video.py`` without ``PIL``)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for name in _module_level_imports(tree):
+        assert name.split(".")[0] not in ("yaml", "PIL", "tensorboard",
+                                          "wandb"), f"{path} imports {name}"
+        assert name != "torch.utils.tensorboard", path

@@ -4,9 +4,10 @@ The batched driving environment (bicycle kinematics, IDM route-follower
 NPCs, OBB collision, SDF offroad, traffic lights, waypoint reward, pooled
 auto-reset and the 3x64x64 birdview) in plain PyTorch, with the birdview
 rasterizer as a hand-written CUDA kernel (``csrc/rasterizer.cu``); and the
-SAC learner on top of it (``models``, ``rl``, ``parallel``): NatureCNN
-policies, the frame-stacked replay buffer, the fused off-policy train step,
-the scripted demonstration policy and the evaluator.
+learners on top of it (``models``, ``rl``, ``parallel``): NatureCNN
+policies, SAC, TD3, PPO and A2C, the frame-stacked replay buffer, the fused
+off-policy and on-policy train steps, the scripted demonstration policy, the
+evaluator and the training CLI (``python -m torchdriveenv_tpu_torch.rl.train``).
 
 The JAX package stays the reference. This package imports nothing of it:
 it reads the same compiled asset files by path.

@@ -27,6 +27,7 @@ from torchdriveenv_tpu_torch.config import CollisionMetric, EnvConfig
 from torchdriveenv_tpu_torch.maps.arrays import (
     Assets,
     MapArrays,
+    device_constant,
     resolve_device,
     sample_dir_angle,
     sample_sdf_grad,
@@ -129,7 +130,7 @@ def _spawn_cell_centers() -> np.ndarray:
     return base[order]
 
 
-_SPAWN_BASE = _spawn_cell_centers()
+_SPAWN_BASE = tuple(map(tuple, _spawn_cell_centers().tolist()))
 
 
 @dataclasses.dataclass
@@ -197,7 +198,7 @@ def _spawn_candidates(draws: ResetDraws, maps: MapArrays, town: torch.Tensor,
     """Local traffic genesis: jittered-grid candidates near the ego, pushed
     onto the road, clear of existing agents. Returns (n, 64, 4) states,
     (n, 64, 3) attrs, (n, 64) speeds, (n, 64) valid, ranked ~closest first."""
-    base = torch.as_tensor(_SPAWN_BASE, device=ego_xy.device)
+    base = device_constant(_SPAWN_BASE, ego_xy.device)
     pos = ego_xy[:, None, :] + base + draws.spawn_jitter
 
     # project candidates onto the drivable area along the SDF gradient
@@ -379,8 +380,8 @@ def step(cfg: EnvConfig, assets: Assets, state: EnvState,
     npc_act = npc_actions(maps, state.town, t_now, state.agent_states,
                           state.agent_attrs, state.present,
                           state.npc_target_speed)
-    low = torch.tensor(ACTION_LOW, device=action.device)
-    high = torch.tensor(ACTION_HIGH, device=action.device)
+    low = device_constant(ACTION_LOW, action.device)
+    high = device_constant(ACTION_HIGH, action.device)
     ego_act = torch.clamp(action, min=low, max=high)
     acts = torch.cat([ego_act[:, None], npc_act[:, 1:]], dim=1)
 

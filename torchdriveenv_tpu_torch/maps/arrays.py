@@ -14,6 +14,7 @@ samplers take a scalar town under ``vmap``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional
 
@@ -31,6 +32,17 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, device: torch.device,
+                    dtype=torch.float32) -> torch.Tensor:
+    """A small constant (nested tuples of numbers) as a tensor on ``device``,
+    uploaded once and shared by every caller, which must not write to it.
+    Building it anew at each call is a host-to-device copy, and that
+    synchronizes the host with the device: in an env step, a stall per
+    constant."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass

@@ -13,7 +13,8 @@ What differs between the two layouts:
     which needs the map's side and so ``obs_res``;
   - an optax Adam state is ``(count, mu, nu)`` over the parameter tree, a
     ``torch.optim.Adam`` state is ``(step, exp_avg, exp_avg_sq)`` per
-    parameter.
+    parameter; behind ``optax.chain(clip_by_global_norm, adam)`` (PPO, A2C)
+    the optax state sits one level deeper, after the clip's empty state.
 
 Both directions are exact (pure permutations), so a round trip returns the
 bits it was given.
@@ -32,6 +33,11 @@ _CONV3_CHANNELS = 64
 SAC_PARAM_KEYS = (("actor_params", "actor"), ("critic_params", "critic"),
                   ("target_critic_params", "target_critic"))
 SAC_OPT_KEYS = ("actor_opt", "critic_opt", "alpha_opt")
+TD3_PARAM_KEYS = (("actor_params", "actor"),
+                  ("target_actor_params", "target_actor"),
+                  ("critic_params", "critic"),
+                  ("target_critic_params", "target_critic"))
+TD3_OPT_KEYS = ("actor_opt", "critic_opt")
 
 
 def _is_torso_fc(path) -> bool:
@@ -100,18 +106,38 @@ def params_from_torch(state_dict: Mapping[str, torch.Tensor],
 def _adam_fields(opt):
     """(count, mu, nu) of an optax Adam state: the restored form
     ``[{"count", "mu", "nu"}, None]``, the dict alone, or the live
-    ``(ScaleByAdamState, EmptyState)``."""
-    if not isinstance(opt, Mapping):
-        opt = opt[0]
-    if isinstance(opt, Mapping):
-        return opt["count"], opt["mu"], opt["nu"]
-    return opt.count, opt.mu, opt.nu
+    ``(ScaleByAdamState, EmptyState)``; and each of these one level down,
+    behind the empty state of a ``clip_by_global_norm`` chained in front
+    (``[None, [{...}, None]]`` restored, ``(EmptyState, (ScaleByAdamState,
+    EmptyState))`` live)."""
+    node = _find_adam(opt)
+    if node is None:
+        raise ValueError("no Adam state in this optimizer state")
+    if isinstance(node, Mapping):
+        return node["count"], node["mu"], node["nu"]
+    return node.count, node.mu, node.nu
+
+
+def _find_adam(node):
+    """The first part of an optax state, depth first, that holds Adam's
+    fields: a dict with ``"count"`` or a named tuple with a ``count`` field."""
+    if isinstance(node, Mapping):
+        return node if "count" in node else None
+    if "count" in getattr(node, "_fields", ()):
+        return node
+    if isinstance(node, (list, tuple)):
+        for part in node:
+            found = _find_adam(part)
+            if found is not None:
+                return found
+    return None
 
 
 def adam_to_torch(opt, obs_res: int = 64) -> Dict[str, Any]:
-    """optax Adam state -> ``{"step": int, "exp_avg": state_dict-like,
-    "exp_avg_sq": state_dict-like}``. The moments of a bare array (the
-    temperature) come back under the key ``""``."""
+    """optax Adam state (plain or behind a clip) -> ``{"step": int,
+    "exp_avg": state_dict-like, "exp_avg_sq": state_dict-like}``. The
+    moments of a bare array (the temperature) come back under the key
+    ``""``."""
     count, mu, nu = _adam_fields(opt)
 
     def moments(m):
@@ -123,16 +149,20 @@ def adam_to_torch(opt, obs_res: int = 64) -> Dict[str, Any]:
             "exp_avg_sq": moments(nu)}
 
 
-def adam_from_torch(adam: Mapping[str, Any], obs_res: int = 64):
-    """Inverse of ``adam_to_torch`` -> ``[{"count", "mu", "nu"}, None]``."""
+def adam_from_torch(adam: Mapping[str, Any], obs_res: int = 64,
+                    chained: bool = False):
+    """Inverse of ``adam_to_torch`` -> ``[{"count", "mu", "nu"}, None]``,
+    the form a checkpoint of the JAX package restores to; with ``chained``,
+    that of ``optax.chain(clip_by_global_norm, adam)``: ``[None, [...]]``."""
     def moments(m):
         if set(m) == {""}:
             return m[""].detach().cpu().numpy()
         return params_from_torch(m, obs_res)
 
-    return [{"count": np.asarray(adam["step"], np.int32),
-             "mu": moments(adam["exp_avg"]),
-             "nu": moments(adam["exp_avg_sq"])}, None]
+    state = [{"count": np.asarray(adam["step"], np.int32),
+              "mu": moments(adam["exp_avg"]),
+              "nu": moments(adam["exp_avg_sq"])}, None]
+    return [None, state] if chained else state
 
 
 def sac_state_to_torch(tree: Mapping[str, Any], obs_res: int = 64
@@ -160,5 +190,52 @@ def sac_state_from_torch(state: Mapping[str, Any], obs_res: int = 64
     out["log_alpha"] = state["log_alpha"].detach().cpu().numpy()
     out["step"] = np.asarray(state["step"], np.int32)
     for k in SAC_OPT_KEYS:
+        out[k] = adam_from_torch(state[k], obs_res)
+    return out
+
+
+def ppo_state_to_torch(tree: Mapping[str, Any], obs_res: int = 64
+                       ) -> Dict[str, Any]:
+    """A whole ``PPOState`` or ``A2CState`` of the JAX package (``params``,
+    the chained ``opt``, ``step``; as numpy) -> what ``rl.ppo.PPO.load_state``
+    and ``rl.a2c.A2C.load_state`` take: ``net``, ``opt``, ``step``."""
+    return {"net": params_to_torch(tree["params"], obs_res),
+            "opt": adam_to_torch(tree["opt"], obs_res),
+            "step": int(np.asarray(tree["step"]))}
+
+
+def ppo_state_from_torch(state: Mapping[str, Any], obs_res: int = 64
+                         ) -> Dict[str, Any]:
+    """Inverse of ``ppo_state_to_torch``: the numpy tree a checkpoint of the
+    JAX package holds."""
+    return {"params": params_from_torch(state["net"], obs_res),
+            "opt": adam_from_torch(state["opt"], obs_res, chained=True),
+            "step": np.asarray(state["step"], np.int32)}
+
+
+a2c_state_to_torch = ppo_state_to_torch         # the same three fields
+a2c_state_from_torch = ppo_state_from_torch
+
+
+def td3_state_to_torch(tree: Mapping[str, Any], obs_res: int = 64
+                       ) -> Dict[str, Any]:
+    """A whole ``TD3State`` of the JAX package (as numpy) -> what
+    ``rl.td3.TD3.load_state`` takes: the four state dicts, ``step`` and the
+    two Adam states."""
+    out: Dict[str, Any] = {dst: params_to_torch(tree[src], obs_res)
+                           for src, dst in TD3_PARAM_KEYS}
+    out["step"] = int(np.asarray(tree["step"]))
+    for k in TD3_OPT_KEYS:
+        out[k] = adam_to_torch(tree[k], obs_res)
+    return out
+
+
+def td3_state_from_torch(state: Mapping[str, Any], obs_res: int = 64
+                         ) -> Dict[str, Any]:
+    """Inverse of ``td3_state_to_torch``."""
+    out: Dict[str, Any] = {src: params_from_torch(state[dst], obs_res)
+                           for src, dst in TD3_PARAM_KEYS}
+    out["step"] = np.asarray(state["step"], np.int32)
+    for k in TD3_OPT_KEYS:
         out[k] = adam_from_torch(state[k], obs_res)
     return out

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchdriveenv_tpu_torch.maps.arrays import device_constant
 from torchdriveenv_tpu_torch.models.cnn import NatureCNN, flax_default_init_
 
 # env action bounds [accel, steer]
@@ -32,8 +33,8 @@ LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
 
 def _bounds(like: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The action box as tensors on ``like``'s device."""
-    return (torch.tensor(ACTION_LOW, dtype=like.dtype, device=like.device),
-            torch.tensor(ACTION_HIGH, dtype=like.dtype, device=like.device))
+    return (device_constant(ACTION_LOW, like.device, like.dtype),
+            device_constant(ACTION_HIGH, like.device, like.dtype))
 
 
 def scale_action(tanh_a: torch.Tensor) -> torch.Tensor:

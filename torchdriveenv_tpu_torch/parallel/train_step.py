@@ -1,9 +1,11 @@
-"""Fused off-policy training step (port of the off-policy half of
-``torchdriveenv_tpu/parallel/train_step.py``).
+"""Fused training steps (port of ``torchdriveenv_tpu/parallel/train_step.py``).
 
-One call steps every env ``steps_per_iter`` times, appends the transitions
-to the replay buffer, and then runs ``updates_per_iter`` gradient updates on
-sampled batches: all on one device, with no host read in between.
+Off-policy (SAC, TD3): one call steps every env ``steps_per_iter`` times,
+appends the transitions to the replay buffer, and then runs
+``updates_per_iter`` gradient updates on sampled batches. On-policy (PPO,
+A2C): one call collects ``n_steps`` per env into time-major tensors and then
+runs the agent's whole update on them. All on one device, with no host read
+in between.
 """
 
 from __future__ import annotations
@@ -18,7 +20,25 @@ from torchdriveenv_tpu_torch.env.batched import make_env_fns
 from torchdriveenv_tpu_torch.maps.arrays import Assets, resolve_device
 from torchdriveenv_tpu_torch.models.policies import scale_action, unscale_action
 from torchdriveenv_tpu_torch.rl import buffer as replay
+from torchdriveenv_tpu_torch.rl.ppo import bootstrap_truncated_rewards
 from torchdriveenv_tpu_torch.rl.rollout import RolloutState, init_stack, update_stack
+
+
+def _check_device(assets: Assets, dev: torch.device) -> None:
+    if assets.device.type != dev.type:
+        raise ValueError(f"assets are on {assets.device}, the train step "
+                         f"on {dev}")
+
+
+def _first_reset(env_cfg: EnvConfig, assets: Assets, num_envs: int, seed: int):
+    """A generator on the assets' device seeded with ``seed``, and the first
+    reset of every env drawn from it -> (generator, env_state, obs)."""
+    generator = torch.Generator(device=assets.device)
+    generator.manual_seed(seed)
+    reset_fn, _ = make_env_fns(env_cfg, assets, render=True)
+    env_state, obs = reset_fn(generator, num_envs)
+    return generator, env_state, obs
+
 
 @dataclasses.dataclass
 class OffPolicyCarry:
@@ -36,7 +56,7 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                              demo_fn: Optional[Callable] = None,
                              demo_steps: int = 0, demo_envs: int = 0,
                              device=None) -> Tuple[Callable, Callable]:
-    """Build (init_fn, train_step_fn) for an off-policy agent (SAC).
+    """Build (init_fn, train_step_fn) for an off-policy agent (SAC, TD3).
 
     init_fn(assets, seed) -> OffPolicyCarry
     train_step_fn(assets, carry) -> (carry, metrics)
@@ -61,17 +81,10 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
     fs = env_cfg.frame_stack
     res = env_cfg.simulator.renderer.obs_res
 
-    def check(assets: Assets) -> None:
-        if assets.device.type != dev.type:
-            raise ValueError(f"assets are on {assets.device}, the train step "
-                             f"on {dev}")
-
     def init_fn(assets: Assets, seed: int = 0) -> OffPolicyCarry:
-        check(assets)
-        generator = torch.Generator(device=assets.device)
-        generator.manual_seed(seed)
-        reset_fn, _ = make_env_fns(env_cfg, assets, render=True)
-        env_state, obs = reset_fn(generator, num_envs)
+        _check_device(assets, dev)
+        generator, env_state, obs = _first_reset(env_cfg, assets, num_envs,
+                                                 seed)
         buf = replay.create(num_envs, buffer_capacity, (3, res, res),
                             device=assets.device)
         agent_state = agent.init(seed=seed, obs_res=res, device=assets.device)
@@ -82,7 +95,7 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
 
     def train_step_fn(assets: Assets, carry: OffPolicyCarry
                       ) -> Tuple[OffPolicyCarry, Dict[str, torch.Tensor]]:
-        check(assets)
+        _check_device(assets, dev)
         _, step_fn = make_env_fns(env_cfg, assets, render=True,
                                   with_final_obs=True)
         g = carry.generator
@@ -132,6 +145,96 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
         new_carry = OffPolicyCarry(
             rollout=rs, buffer=buf, agent_state=agent.state, generator=g,
             env_steps=carry.env_steps + steps_per_iter * num_envs)
+        return new_carry, metrics
+
+    return init_fn, train_step_fn
+
+
+@dataclasses.dataclass
+class OnPolicyCarry:
+    rollout: RolloutState
+    agent_state: Any                # the agent's own state (agent.state)
+    generator: torch.Generator      # on the envs' device
+    env_steps: int                  # total env steps taken
+
+
+def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
+                            n_steps: Optional[int] = None,
+                            device=None) -> Tuple[Callable, Callable]:
+    """Build (init_fn, train_step_fn) for an on-policy agent (PPO, A2C).
+
+    init_fn(assets, seed) -> OnPolicyCarry
+    train_step_fn(assets, carry) -> (carry, metrics)
+
+    Each train step collects ``n_steps`` (default: the agent's) per env and
+    then runs the agent's full update on the rollout. Per env step: the
+    action, its log-prob and the value of the current stack; the env step
+    with the pre-auto-reset observation; the value of the terminal stack,
+    folded into the reward of envs that were truncated by the time limit
+    (SB3's timeout bootstrap); then the stack moves on. The rows go into
+    time-major tensors allocated once per train step (``obs`` is
+    (T, E, S*C, H, W) uint8). ``mean_step_reward`` is the mean of the raw
+    reward, before the bootstrap.
+
+    ``device=None`` means the GPU; the assets must be on the same device.
+    """
+    dev = resolve_device(device)
+    fs = env_cfg.frame_stack
+    res = env_cfg.simulator.renderer.obs_res
+    n_steps = n_steps or agent.cfg.n_steps
+
+    def init_fn(assets: Assets, seed: int = 0) -> OnPolicyCarry:
+        _check_device(assets, dev)
+        generator, env_state, obs = _first_reset(env_cfg, assets, num_envs,
+                                                 seed)
+        agent_state = agent.init(seed=seed, obs_res=res, device=assets.device)
+        return OnPolicyCarry(
+            rollout=RolloutState(env_state, init_stack(obs, fs)),
+            agent_state=agent_state, generator=generator, env_steps=0)
+
+    def train_step_fn(assets: Assets, carry: OnPolicyCarry
+                      ) -> Tuple[OnPolicyCarry, Dict[str, torch.Tensor]]:
+        _check_device(assets, dev)
+        _, step_fn = make_env_fns(env_cfg, assets, render=True,
+                                  with_final_obs=True)
+        g, rs = carry.generator, carry.rollout
+        d = assets.device
+
+        def rows(*shape, dtype=torch.float32):
+            return torch.empty((n_steps, num_envs) + shape, dtype=dtype,
+                               device=d)
+
+        rollout = dict(obs=rows(*rs.obs_stack.shape[1:], dtype=torch.uint8),
+                       action=rows(2), log_prob=rows(), value=rows(),
+                       reward=rows(), done=rows(dtype=torch.bool),
+                       raw_reward=rows())
+        with torch.no_grad():
+            for t in range(n_steps):
+                a, logp, value = agent.select_action(rs.obs_stack, g)
+                out = step_fn(rs.env_state, scale_action(a), g)
+                done = out.terminated | out.truncated
+                # terminal frame stack: final_obs shifted in WITHOUT the
+                # episode-boundary refill (it belongs to the ending episode)
+                c = out.final_obs.shape[1]
+                final_stack = torch.cat([rs.obs_stack[:, c:], out.final_obs],
+                                        dim=1)
+                reward = bootstrap_truncated_rewards(
+                    out.reward, out.terminated, out.truncated,
+                    agent.value(final_stack), agent.cfg.gamma)
+                for k, v in (("obs", rs.obs_stack), ("action", a),
+                             ("log_prob", logp), ("value", value),
+                             ("reward", reward), ("done", done),
+                             ("raw_reward", out.reward)):
+                    rollout[k][t] = v
+                rs = RolloutState(out.state,
+                                  update_stack(rs.obs_stack, out.obs, done))
+            last_value = agent.value(rs.obs_stack)
+
+        metrics = dict(agent.update(rollout, last_value, generator=g))
+        metrics["mean_step_reward"] = rollout["raw_reward"].mean()
+        new_carry = OnPolicyCarry(
+            rollout=rs, agent_state=agent.state, generator=g,
+            env_steps=carry.env_steps + n_steps * num_envs)
         return new_carry, metrics
 
     return init_fn, train_step_fn

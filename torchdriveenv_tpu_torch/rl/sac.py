@@ -25,6 +25,7 @@ from torchdriveenv_tpu_torch.models.policies import (
     SquashedGaussianActor,
     sample_squashed,
 )
+from torchdriveenv_tpu_torch.rl.optim import adam_export, adam_load, apply_grads
 
 
 @dataclasses.dataclass
@@ -67,30 +68,6 @@ class SACState:
     critic_opt: torch.optim.Adam
     alpha_opt: torch.optim.Adam
     step: int = 0                   # gradient updates taken
-
-
-def _adam_export(opt: torch.optim.Adam, named) -> Dict[str, Any]:
-    """``torch.optim.Adam`` state -> ``{"step", "exp_avg", "exp_avg_sq"}``
-    keyed like a state dict (see ``models/convert.py``)."""
-    out = {"step": 0, "exp_avg": {}, "exp_avg_sq": {}}
-    for name, p in named:
-        s = opt.state.get(p)
-        out["exp_avg"][name] = (s["exp_avg"].detach().clone() if s
-                                else torch.zeros_like(p))
-        out["exp_avg_sq"][name] = (s["exp_avg_sq"].detach().clone() if s
-                                   else torch.zeros_like(p))
-        if s:
-            out["step"] = int(s["step"])
-    return out
-
-
-def _adam_load(opt: torch.optim.Adam, named, adam: Mapping[str, Any]) -> None:
-    for name, p in named:
-        opt.state[p] = {
-            "step": torch.tensor(float(adam["step"])),
-            "exp_avg": adam["exp_avg"][name].to(p.device, p.dtype).clone(),
-            "exp_avg_sq": adam["exp_avg_sq"][name].to(p.device, p.dtype).clone(),
-        }
 
 
 class SAC:
@@ -155,7 +132,7 @@ class SAC:
         for opt, named, key in zip(
                 (st.actor_opt, st.critic_opt, st.alpha_opt), self._named(),
                 ("actor_opt", "critic_opt", "alpha_opt")):
-            _adam_load(opt, named, converted[key])
+            adam_load(opt, named, converted[key])
         return st
 
     def export_state(self) -> Dict[str, Any]:
@@ -170,7 +147,7 @@ class SAC:
         for opt, named, key in zip(
                 (st.actor_opt, st.critic_opt, st.alpha_opt), self._named(),
                 ("actor_opt", "critic_opt", "alpha_opt")):
-            out[key] = _adam_export(opt, named)
+            out[key] = adam_export(opt, named)
         return out
 
     # -- acting -----------------------------------------------------------
@@ -200,8 +177,10 @@ class SAC:
         cfg, st = self.cfg, self.state
         n_next, n_pi = noise if noise is not None else (None, None)
         fixed = cfg.fixed_alpha is not None
-        alpha = (torch.tensor(cfg.fixed_alpha, dtype=torch.float32,
-                              device=st.log_alpha.device)
+        # torch.full fills on the device; torch.tensor would upload, which
+        # synchronizes the host with the device at every update
+        alpha = (torch.full((), cfg.fixed_alpha, dtype=torch.float32,
+                            device=st.log_alpha.device)
                  if fixed else torch.exp(st.log_alpha.detach()))
         obs, next_obs = batch["obs"], batch["next_obs"]
         critic_params = list(st.critic.parameters())
@@ -242,10 +221,7 @@ class SAC:
         (alpha_grad,) = torch.autograd.grad(alpha_loss, [st.log_alpha])
 
         # every gradient is in hand: now the Adam steps
-        for p, g in zip(critic_params, critic_grads):
-            p.grad = g
-        st.critic_opt.step()
-        st.critic_opt.zero_grad(set_to_none=True)
+        apply_grads(st.critic_opt, critic_params, critic_grads)
         with torch.no_grad():       # polyak average towards the new critic
             targets = list(st.target_critic.parameters())
             torch._foreach_mul_(targets, 1.0 - cfg.tau)
@@ -254,15 +230,10 @@ class SAC:
         # while the actor is delayed, the actor, the temperature and both
         # their optimizers (step counts included) stay as they were
         if st.step >= cfg.actor_delay_updates:
-            for p, g in zip(actor_params, actor_grads):
-                p.grad = g
-            st.actor_opt.step()
-            st.actor_opt.zero_grad(set_to_none=True)
+            apply_grads(st.actor_opt, actor_params, actor_grads)
             # a fixed temperature: Adam's moments advance, log_alpha does not
             kept = st.log_alpha.detach().clone() if fixed else None
-            st.log_alpha.grad = alpha_grad
-            st.alpha_opt.step()
-            st.alpha_opt.zero_grad(set_to_none=True)
+            apply_grads(st.alpha_opt, [st.log_alpha], [alpha_grad])
             if fixed:
                 with torch.no_grad():
                     st.log_alpha.copy_(kept)
