@@ -22,7 +22,22 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              the default EnvConfig, with the launch counts set to 0 just
              before and read just after; the kernel must have launched once
              per render. Then 4 steps with with_final_obs=True.
-  4. learner the SAC learner path. (a) The shipped deliverable actor on the
+  4. npc   the GRU NPC policy. (a) The shipped weights on the 4096-env
+             policy-mode batch after 8 steps, card (TF32 off) against the
+             CPU: atol 1e-5 on actions and hidden state, on the card's own
+             features and through the features for every agent whose
+             features agree (the others, a share of at most 1e-4, are
+             counted). (b) BatchedEnv(EnvConfig(npc_mode="policy")) at 4096
+             envs: 32 timed steps with 32 launches, frames equal to the
+             twin's, npc_hidden finite, non-zero for present NPCs and zero
+             in restarted envs; one step with no synchronizing call; 4 steps
+             with with_final_obs (8 launches).
+  5. gym   render_egocentric (the SDF-grid birdview) on the card against the
+             CPU on the main path's 4096 envs at 64 px (at most a 1e-3 share
+             of pixels may differ), timed there and at 1024 px / 500 m; then,
+             where gymnasium imports, one validation episode of
+             gym.make("torchdriveenv-torch-v0") with video and one without.
+  6. learner the SAC learner path. (a) The shipped deliverable actor on the
              4096-env batch's frame stacks, f32 on the card against f32 on
              the CPU (atol 1e-4), then with the default bf16 torso. (b) The
              stage-1 recipe at its real size (128 envs, a 3125-cell ring per
@@ -34,7 +49,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              episodes of 200 steps. Launch counts are set to 0 before each
              train step and before the evaluation and read after: 2 per env
              step in training, 1 per step in evaluation.
-  5. train   the training CLI's function (rl/train.py:train) on the card,
+  7. train   the training CLI's function (rl/train.py:train) on the card,
              from configs that equal the repo's YAML files (RECIPES below;
              where PyYAML imports, the files themselves are loaded and
              compared) with only total_timesteps, log_dir, checkpoint_dir,
@@ -44,9 +59,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              3 train steps, its model_* and full_latest written, one traced
              train step, then one more train step resumed from full_latest.
              A2C and TD3 from artifacts/{a2c,td3}_short_run.yml (10 envs) for
-             about three thousand env steps each. Every train step is timed
-             with CUDA events (rollout / update split at the first
-             agent.update) and must launch the rasterizer twice per env step.
+             about three thousand env steps each; the stage-1 SAC recipe with
+             the GRU driving every NPC (artifacts/sac_npcpolicy_run.yml: 128
+             envs, a 4.9 GB ring, 64 updates of 512) for 3 train steps, its
+             npc_hidden carried. Every train step is timed with CUDA events
+             (rollout / update split at the first agent.update) and must
+             launch the rasterizer twice per env step; one PPO train step
+             must make no synchronizing call.
 Then it prints one JSON line describing each kernel and the paths, the
 card's name and power limit, and as the last line {"ok": true, "device":
 {...}}.
@@ -138,6 +157,23 @@ def _short_run(algorithm: str) -> dict:
         wandb_callback=dict(model_save_freq=50000))
 
 
+def _stage1_sac(total: str, name: str, **env) -> dict:
+    return dict(
+        algorithm="sac", parallel_env_num=128, total_timesteps=total,
+        project="torchdriveenv_tpu",
+        checkpoint_dir=f"artifacts/{name}_ckpt", log_dir="artifacts/runs",
+        offpolicy_steps_per_iter=4, offpolicy_updates_per_iter=64,
+        demo_envs=16, demo_warmup_steps=100000,
+        algo_kwargs=dict(batch_size=512, buffer_size=400000, gamma=0.99,
+                         fixed_alpha=0.02, actor_delay_updates=1000000000,
+                         bc_coef=50.0),
+        env=dict(_ENV, **env),
+        eval_train_callback=dict(n_steps=50000, eval_n_episodes=10),
+        eval_val_callback=dict(n_steps=50000, eval_n_episodes=25),
+        wandb_callback=dict(model_save_freq=100000),
+        full_snapshot_every=-1)
+
+
 RECIPES = {
     "examples/env_configs/tpu_scale/ppo_1024.yml": dict(
         algorithm="ppo", parallel_env_num=1024, total_timesteps="5e7",
@@ -149,25 +185,15 @@ RECIPES = {
         wandb_callback=dict(model_save_freq=1000000)),
     "artifacts/a2c_short_run.yml": _short_run("a2c"),
     "artifacts/td3_short_run.yml": _short_run("td3"),
-    "artifacts/sac_stage1_run.yml": dict(
-        algorithm="sac", parallel_env_num=128, total_timesteps="2e6",
-        project="torchdriveenv_tpu",
-        checkpoint_dir="artifacts/sac_stage1_ckpt", log_dir="artifacts/runs",
-        offpolicy_steps_per_iter=4, offpolicy_updates_per_iter=64,
-        demo_envs=16, demo_warmup_steps=100000,
-        algo_kwargs=dict(batch_size=512, buffer_size=400000, gamma=0.99,
-                         fixed_alpha=0.02, actor_delay_updates=1000000000,
-                         bc_coef=50.0),
-        env=dict(_ENV, seed=29),
-        eval_train_callback=dict(n_steps=50000, eval_n_episodes=10),
-        eval_val_callback=dict(n_steps=50000, eval_n_episodes=25),
-        wandb_callback=dict(model_save_freq=100000),
-        full_snapshot_every=-1),
+    "artifacts/sac_stage1_run.yml": _stage1_sac("2e6", "sac_stage1", seed=29),
+    "artifacts/sac_npcpolicy_run.yml": _stage1_sac(
+        "1e6", "sac_npcpolicy", seed=31, npc_mode="policy"),
 }
 PPO_YML = "examples/env_configs/tpu_scale/ppo_1024.yml"
 A2C_YML = "artifacts/a2c_short_run.yml"
 TD3_YML = "artifacts/td3_short_run.yml"
 SAC_YML = "artifacts/sac_stage1_run.yml"
+NPC_SAC_YML = "artifacts/sac_npcpolicy_run.yml"
 
 # the [learner] phase's sizes: the stage-1 SAC recipe's
 _SAC = RECIPES[SAC_YML]
@@ -183,6 +209,7 @@ RECIPE_SEED = _SAC["env"]["seed"]
 PPO_TRAIN_STEPS = 3
 A2C_TRAIN_STEPS = 12
 TD3_TRAIN_STEPS = 40
+NPC_SAC_TRAIN_STEPS = 3
 EVAL_EPISODES = 25
 EVAL_STEPS = 200
 
@@ -193,7 +220,7 @@ def check(cond, msg: str) -> None:
 
 
 def learner_phase(assets, env, state, act, card) -> dict:
-    """Phase 4: the SAC learner path on the card. ``env`` / ``state`` are the
+    """Phase 6: the SAC learner path on the card. ``env`` / ``state`` are the
     main path's 4096-env batch, ``act`` its constant action."""
     from torchdriveenv_tpu_torch.bench import profile_steps
     from torchdriveenv_tpu_torch.config import EnvConfig, construct_rl_training_config
@@ -474,10 +501,299 @@ def learner_phase(assets, env, state, act, card) -> dict:
     return result
 
 
+def synchronizing_calls(fn):
+    """fn() under ``torch.cuda.set_sync_debug_mode("warn")`` -> (its result,
+    {"file:line": count} of the calls from this package's code that
+    synchronized the host with the device)."""
+    syncs = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message).lower():
+            inside = [f"{os.path.basename(f.filename)}:{f.lineno}"
+                      for f in traceback.extract_stack()
+                      if "torchdriveenv_tpu_torch" in f.filename]
+            if inside:          # not the mode's own notice
+                syncs.append(inside[-1])
+
+    plain_show = warnings.showwarning
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = plain_show
+    torch.cuda.synchronize()
+    return out, {w: syncs.count(w) for w in sorted(set(syncs))}
+
+
+def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
+    """Phase 4: the GRU NPC policy on the card. (a) The shipped weights
+    on the 4096-env policy-mode batch after 8 steps, card against CPU.
+    (b) The policy-mode main path at full width: 32 timed steps, then 4
+    with ``with_final_obs``."""
+    from torchdriveenv_tpu_torch.bench import phase_ms
+    from torchdriveenv_tpu_torch.config import EnvConfig
+    from torchdriveenv_tpu_torch.env.batched import BatchedEnv
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    from torchdriveenv_tpu_torch.npc import policy_net
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+
+    cfg = EnvConfig(npc_mode="policy")
+    env = BatchedEnv(cfg, assets, N_ENVS, seed=5)
+    state, _ = env.reset()
+    check(state.npc_hidden.shape == (N_ENVS, 96, policy_net.HIDDEN)
+          and not state.npc_hidden.any(), "the reset's hidden state")
+    for _ in range(8):
+        state = env.step(state, act).state
+
+    # ---- a. the shipped GRU, card against CPU -------------------------
+    cpu = load_assets("train", device="cpu")
+    t = state.time0 + state.step_idx.float() * cfg.simulator.dt
+    args = (state.town, t, state.agent_states, state.agent_attrs,
+            state.present, state.npc_target_speed)
+    rest = (state.npc_hidden, state.agent_states, state.npc_target_speed)
+    cpu_rest = [x.cpu() for x in rest]
+    with torch.no_grad():
+        feats = policy_net._features(assets.maps, *args)
+        act_g, h_g = policy_net.policy_actions(policy_net.default_params(),
+                                               feats, *rest)
+        feats_c = policy_net._features(cpu.maps, *(x.cpu() for x in args))
+        shipped_cpu = policy_net.default_params("cpu")
+        act_c, h_c = policy_net.policy_actions(shipped_cpu, feats_c, *cpu_rest)
+        # the GRU and its rules on the card's own features
+        act_s, h_s = policy_net.policy_actions(shipped_cpu, feats.cpu(),
+                                               *cpu_rest)
+    feats, act_g, h_g = feats.cpu(), act_g.cpu(), h_g.cpu()
+
+    def err(a, b):
+        return (a - b).abs().amax(dim=-1)                      # per agent
+
+    gru_err = float(torch.maximum(err(act_g, act_s), err(h_g, h_s)).max())
+    full = torch.maximum(err(act_g, act_c), err(h_g, h_c))
+    jump = err(feats, feats_c) > 1e-5       # a feature crossed a discontinuity
+    fold = jump & (feats[..., 2] * feats_c[..., 2] < 0)      # sin(herr) flipped
+    n_agents = full.numel()
+    smooth_err = float(full[~jump].max())
+    log(f"[npc] shipped GRU on {N_ENVS} x 96 agents after 8 policy-mode "
+        f"steps, card (TF32 off) against the CPU: on the card's features "
+        f"max |action, hidden| error {gru_err:.3e}; through the features, "
+        f"{smooth_err:.3e} over the agents whose features agree to 1e-5 "
+        f"(atol 1e-5); {int(jump.sum())} of {n_agents} agents have a feature "
+        f"that differs by more (a rounding on either side of a "
+        f"discontinuity), {int(fold.sum())} of them at the heading fold; "
+        f"max over all agents {float(full.max()):.3e}")
+    check(gru_err <= 1e-5, f"GRU card against CPU: {gru_err}")
+    check(smooth_err <= 1e-5, f"npc_policy_actions card against CPU: "
+          f"{smooth_err}")
+    check(int(jump.sum()) <= 1e-4 * n_agents,
+          f"{int(jump.sum())} agents' features jump")
+    result = dict(gru_max_abs_err=gru_err, max_abs_err=smooth_err,
+                  agents=n_agents, feature_jumps=int(jump.sum()),
+                  feature_jumps_at_fold=int(fold.sum()))
+    del feats, feats_c, act_g, h_g, act_c, h_c, act_s, h_s, cpu
+
+    # ---- b. the policy-mode main path ---------------------------------
+    torch.cuda.synchronize()
+    rc.render_obs_cuda.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        out = env.step(state, act)
+        state = out.state
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = rc.render_obs_cuda.launches
+    steps_per_s = N_ENVS * TIMED_STEPS / elapsed
+    log(f"[npc] policy-mode main path: {TIMED_STEPS} steps x {N_ENVS} envs "
+        f"in {elapsed:.3f} s: {steps_per_s:.1f} env-steps/s "
+        f"({steps_per_s / route_steps_per_s:.3f} of route mode's "
+        f"{route_steps_per_s:.1f} in [main]), rasterizer launches "
+        f"{launches} [{card}]")
+    check(launches == TIMED_STEPS, f"{launches} launches in {TIMED_STEPS} "
+          "policy-mode steps")
+    check(out.obs.shape == (N_ENVS, 3, 64, 64) and out.obs.dtype == torch.uint8,
+          "policy-mode obs")
+    check(bool(torch.isfinite(out.reward).all())
+          and bool(torch.isfinite(state.agent_states).all()), "non-finite")
+    check(torch.equal(out.obs, rc.render_obs_torch(assets.maps, state.town,
+                                                   *prep_of(cfg, state))),
+          "policy-mode obs differ from the twin's render")
+    hidden = state.npc_hidden
+    running = state.step_idx > 0
+    npc = state.present.clone()
+    npc[:, 0] = False
+    check(bool(torch.isfinite(hidden).all()), "non-finite npc_hidden")
+    check(bool((hidden.abs().amax(dim=-1) > 0)[running[:, None] & npc].all()),
+          "a present NPC of a running env has a zero hidden state")
+    check(not hidden[~running].any(), "a restarted env kept its hidden state")
+    log(f"[npc] npc_hidden {tuple(hidden.shape)}: finite, non-zero for the "
+        f"{int((running[:, None] & npc).sum())} present NPCs of running envs, "
+        f"zero in the {int((~running).sum())} envs restarted this step; "
+        f"mean |h| {float(hidden.abs().mean()):.4f}")
+    phases = phase_ms(cfg, assets, state, env.generator)
+    log("[npc] phase ms per step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()) + f" [{card}]")
+    out, where = synchronizing_calls(lambda: env.step(state, act))
+    log(f"[npc] one policy-mode step with synchronizing calls reported: "
+        f"{sum(where.values())}: {where}")
+    check(not where, f"synchronizing calls in a policy-mode step: {where}")
+    del env, state, out, hidden
+
+    fenv = BatchedEnv(cfg, assets, N_ENVS, seed=6, with_final_obs=True)
+    fstate, _ = fenv.reset()
+    torch.cuda.synchronize()
+    rc.render_obs_cuda.launches = 0
+    for _ in range(4):
+        fout = fenv.step(fstate, act)
+        fstate = fout.state
+    torch.cuda.synchronize()
+    f_launches = rc.render_obs_cuda.launches
+    log(f"[npc] with_final_obs: 4 steps, rasterizer launches {f_launches}")
+    check(f_launches == 8 and fout.final_obs.shape == (N_ENVS, 3, 64, 64),
+          "policy mode with_final_obs")
+    result.update(env_steps_per_s=steps_per_s, timed_steps=TIMED_STEPS,
+                  num_envs=N_ENVS, rasterizer_launches=launches,
+                  route_env_steps_per_s=route_steps_per_s, phases_ms=phases,
+                  synchronizing_calls_in_a_step=where,
+                  with_final_obs_launches=f_launches)
+    return result
+
+
+def gym_phase(assets, state, card, have) -> dict:
+    """Phase 5: ``render_egocentric`` (the SDF-grid birdview) on the
+    card against the CPU on the main path's 4096-env state, its 64-pixel and
+    1024-pixel times, the time of the adapter's step at B = 1; then, where
+    gymnasium imports, one validation episode of ``torchdriveenv-torch-v0``
+    with video and one without."""
+    import numpy as np
+
+    from torchdriveenv_tpu_torch.config import EnvConfig
+    from torchdriveenv_tpu_torch.env import core
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    from torchdriveenv_tpu_torch.ops.rasterizer import render_egocentric
+
+    dt = EnvConfig().simulator.dt
+
+    def args_of(a, st):
+        t = st.time0 + st.step_idx.float() * dt
+        case = st.case.long()
+        return (st.town, t, st.agent_states, st.agent_attrs, st.present,
+                a.suite.waypoints[case], st.target_idx,
+                a.suite.n_waypoints[case])
+
+    cpu = load_assets("train", device="cpu")
+    cpu_state = core.EnvState.from_numpy(state.to_numpy(), device="cpu")
+    with torch.no_grad():
+        card_frames = render_egocentric(assets.maps, *args_of(assets, state))
+        cpu_frames = torch.cat([
+            render_egocentric(cpu.maps, *args_of(cpu, cpu_state.take(
+                torch.arange(i, min(i + 512, N_ENVS)))))
+            for i in range(0, N_ENVS, 512)])
+        bad = (card_frames.cpu() != cpu_frames).any(dim=1)
+        share = float(bad.float().mean())
+        ms_64 = cuda_ms(lambda: render_egocentric(
+            assets.maps, *args_of(assets, state)), 5)
+        one = state.take(torch.zeros(1, dtype=torch.long, device="cuda"))
+        frame = render_egocentric(assets.maps, *args_of(assets, one),
+                                  res=1024, fov=500.0)
+        ms_1024 = cuda_ms(lambda: render_egocentric(
+            assets.maps, *args_of(assets, one), res=1024, fov=500.0), 5)
+    log(f"[gym] render_egocentric at 64 px / 70 m on {N_ENVS} envs, card "
+        f"against CPU: {int(bad.sum())} of {bad.numel()} pixels differ "
+        f"(share {share:.3e}, limit 1e-3); {ms_64:.3f} ms per {N_ENVS}-env "
+        f"render on the card; one 1024 px / 500 m frame {ms_1024:.3f} ms "
+        f"[{card}]")
+    check(card_frames.shape == (N_ENVS, 3, 64, 64)
+          and frame.shape == (1, 3, 1024, 1024), "frame shapes")
+    check(share <= 1e-3, f"render_egocentric card against CPU: {share}")
+    result = dict(mismatched_pixel_share=share, mismatched_pixels=int(bad.sum()),
+                  render_64_ms_4096_envs=ms_64, render_1024_ms=ms_1024)
+    del card_frames, cpu_frames, cpu, cpu_state
+
+    # the calls TorchGymEnv.step makes at B = 1 (core.step, the 64 px obs,
+    # the host reads; with video also the 1024 px frame), timed without
+    # gymnasium, which the GPU machine may lack
+    val = load_assets("val")
+    st0 = core.reset(EnvConfig(), val, 1,
+                     torch.Generator(device="cuda").manual_seed(7))
+    a1 = torch.tensor([[0.3, 0.0]], device="cuda")
+
+    def adapter_ms_per_step(n, video):
+        st = st0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            st, r, term, trunc, info = core.step(EnvConfig(), val, st, a1)
+            render_egocentric(val.maps, *args_of(val, st))[0].cpu().numpy()
+            if video:
+                render_egocentric(val.maps, *args_of(val, st), res=1024,
+                                  fov=500.0)[0].cpu().numpy()
+            host = (float(r[0]), bool(term[0]), bool(trunc[0]),
+                    {k: v[0].cpu().numpy() for k, v in info.items()})
+        check(math.isfinite(host[0]), "the adapter's reward")
+        return (time.perf_counter() - t0) / n * 1e3
+
+    adapter_ms_per_step(5, True)                            # warm-up
+    plain_ms, video_ms = adapter_ms_per_step(100, False), \
+        adapter_ms_per_step(100, True)
+    log(f"[gym] the adapter's step at B = 1 on the card (core.step, the "
+        f"64 px obs, the host reads), 100 steps: {plain_ms:.2f} ms per "
+        f"step; with the 1024 px / 500 m video frame: {video_ms:.2f} ms "
+        f"[{card}]")
+    result.update(adapter_step_ms=plain_ms, adapter_step_with_video_ms=video_ms)
+
+    if not have["gymnasium"]:
+        log("[gym] gymnasium does not import here: no Gym episode")
+        return result
+    import gymnasium as gym
+    import torchdriveenv_tpu_torch  # noqa: F401  (registers the env id)
+
+    def episode(mode, video):
+        env = gym.make("torchdriveenv-torch-v0", args={
+            "cfg": EnvConfig(render_mode=mode, video_filename=video, seed=7),
+            "data": "val"})
+        obs, _ = env.reset(seed=7)
+        steps, done = 0, False
+        t0 = time.perf_counter()
+        while not done:
+            obs, r, term, trunc, info = env.step(np.array([0.3, 0.0],
+                                                          np.float32))
+            steps += 1
+            done = term or trunc
+        step_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        env.close()
+        check(obs.shape == (3, 64, 64) and np.isfinite(r), "gym step output")
+        return steps, step_s / steps * 1e3, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        video = os.path.join(tmp, "episode.avi")
+        rc.render_obs_cuda.launches = 0
+        modes = ("video", "rgb_array") if have["PIL"] else ("rgb_array",)
+        for mode in modes:
+            steps, ms, close_s = episode(mode, video)
+            log(f"[gym] gym.make('torchdriveenv-torch-v0') {mode} episode on "
+                f"the card: {steps} steps, {ms:.2f} ms per step"
+                + (f" (a 64 px obs and a 1024 px video frame each), close "
+                   f"{close_s:.2f} s, video {os.path.getsize(video)} bytes"
+                   if mode == "video" else "") + f" [{card}]")
+            result[f"{mode}_episode"] = dict(steps=steps, ms_per_step=ms)
+            if mode == "video":
+                check(os.path.isfile(video) and os.path.getsize(video) > 1000,
+                      "the episode's video")
+                result["video_episode"]["video_bytes"] = os.path.getsize(video)
+        check(rc.render_obs_cuda.launches == 0,
+              "the Gym adapter launched the batched env's rasterizer")
+    return result
+
+
 def optional_packages() -> dict:
     """Which of the optional packages import on this machine."""
     have = {}
-    for name in ("yaml", "PIL", "tensorboard", "wandb"):
+    for name in ("yaml", "PIL", "tensorboard", "wandb", "gymnasium"):
         try:
             importlib.import_module(name)
             have[name] = True
@@ -554,8 +870,8 @@ def probed_train(train_mod, rc):
 
 
 def train_phase(card, have) -> dict:
-    """Phase 5: ``rl.train.train`` on the card for PPO (full width), A2C
-    and TD3, from RECIPES."""
+    """Phase 7: ``rl.train.train`` on the card for PPO (full width), A2C,
+    TD3 and the stage-1 SAC recipe with the GRU NPCs, from RECIPES."""
     from torchdriveenv_tpu_torch import config as tconfig
     from torchdriveenv_tpu_torch.bench import profile_steps
     from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
@@ -690,37 +1006,13 @@ def train_phase(card, have) -> dict:
             + "; ".join(f"{n[:40]} {ms:.2f} ms x{c}"
                         for n, ms, c in prof["top_kernels_ms_per_step"][:4])
             + f" [{card}]")
-        # and one more with every synchronizing call reported. A train step
-        # must not read the device from the host; what is left are the two
-        # uploads per env step of the stoplines' palette in
-        # ops/rasterizer_cuda.py:prepare_obs_inputs (one per render).
-        syncs = []
-
-        def note(message, category, filename, lineno, file=None, line=None):
-            if "synchroniz" in str(message).lower():
-                inside = [f"{os.path.basename(f.filename)}:{f.lineno}"
-                          for f in traceback.extract_stack()
-                          if "torchdriveenv_tpu_torch" in f.filename]
-                if inside:          # not the mode's own notice
-                    syncs.append(inside[-1])
-
-        plain_show = warnings.showwarning
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = note
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                carry, _ = probe.train_fn(probe.assets, carry)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-                warnings.showwarning = plain_show
-        torch.cuda.synchronize()
-        where = {w: syncs.count(w) for w in sorted(set(syncs))}
+        # and one more with every synchronizing call reported: a train step
+        # must not read the device from the host, nor upload host data
+        (carry, _), where = synchronizing_calls(
+            lambda: probe.train_fn(probe.assets, carry))
         log(f"[train] one PPO train step with synchronizing calls reported: "
-            f"{len(syncs)}: {where}")
-        check(all(w.startswith("rasterizer_cuda.py") for w in syncs)
-              and len(syncs) <= 2 * n_steps,
-              f"PPO: host reads inside a train step: {where}")
+            f"{sum(where.values())}: {where}")
+        check(not where, f"PPO: synchronizing calls in a train step: {where}")
         del carry, probe
 
         # resumed from full_latest: one more train step of the same run
@@ -826,6 +1118,56 @@ def train_phase(card, have) -> dict:
                 rasterizer_launches_per_train_step=2 * steps_per_iter,
                 **counts)
             del carry, probe
+
+    # ---- stage-1 SAC with the GRU driving every NPC -----------------------
+    from torchdriveenv_tpu_torch.rl.sac import SACConfig
+    npc = RECIPES[NPC_SAC_YML]
+    n_envs, spi = npc["parallel_env_num"], npc["offpolicy_steps_per_iter"]
+    upi = npc["offpolicy_updates_per_iter"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config_of(NPC_SAC_YML, tmp, NPC_SAC_TRAIN_STEPS * spi * n_envs)
+        check(cfg.env.npc_mode == "policy", "the recipe's npc_mode")
+        carry, probe, rows, records = run("SAC npc policy", cfg, eval_launches)
+        check(len(rows) == NPC_SAC_TRAIN_STEPS
+              and carry.env_steps == NPC_SAC_TRAIN_STEPS * spi * n_envs,
+              "SAC npc policy: depth")
+        for r in rows:
+            check(r["rasterizer_launches"] == 2 * spi,
+                  f"SAC npc policy: {r['rasterizer_launches']} launches in a "
+                  "train step")
+        hidden = carry.rollout.env_state.npc_hidden
+        check(hidden is not None and hidden.shape == (n_envs, 96, 16)
+              and bool(torch.isfinite(hidden).all())
+              and float(hidden.abs().max()) > 0.0,
+              "SAC npc policy: npc_hidden is not carried")
+        after = probe.agent.export_state()
+        warm = -(-SACConfig().learning_starts // (spi * n_envs))
+        updates = (NPC_SAC_TRAIN_STEPS - warm) * upi
+        check(after["step"] == updates and after["critic_opt"]["step"] == updates,
+              f"SAC npc policy: {after['step']} updates")
+        check(moved(probe.initial["critic"], after["critic"]),
+              "SAC npc policy: the critic did not move")
+        check(not moved(probe.initial["actor"], after["actor"]),
+              "SAC npc policy: the frozen actor moved")
+        frames_gb = carry.buffer.frames.numel() / 1e9
+        last = [r for r in records if any(k.startswith("train/")
+                                          for k in r)][-1]
+        log(f"[train] SAC npc policy ({NPC_SAC_YML}): {n_envs} envs, ring of "
+            f"{frames_gb:.2f} GB, {NPC_SAC_TRAIN_STEPS} train steps of "
+            f"{spi} env steps + {upi} updates of "
+            f"{npc['algo_kwargs']['batch_size']} ("
+            + "; ".join(f"{r['ms']:.1f} ms = env {r['rollout_ms']:.1f} + "
+                        f"updates {r['update_ms']:.1f}" for r in rows)
+            + f"); {updates} updates; npc_hidden {tuple(hidden.shape)} mean "
+            f"|h| {float(hidden.abs().mean()):.4f}; last record: "
+            + ", ".join(f"{k[6:]} {v:.4g}" for k, v in last.items()
+                        if k.startswith("train/")) + f" [{card}]")
+        result["sac_npcpolicy"] = dict(
+            source=NPC_SAC_YML, num_envs=n_envs, train_steps=rows,
+            updates=updates, buffer_frames_gb=frames_gb,
+            rasterizer_launches_per_train_step=2 * spi,
+            npc_hidden_mean_abs=float(hidden.abs().mean()))
+        del carry, probe, hidden
     return result
 
 
@@ -1071,9 +1413,12 @@ def main() -> int:
         "(batch + pool render per step)")
     if f_launches != 8 or fout.final_obs.shape != (N_ENVS, 3, 64, 64):
         raise AssertionError("with_final_obs path did not render as expected")
+    del fenv, fstate, fout
 
+    npc = npc_phase(assets, act, card, prep_of, steps_per_s)
+    gym = gym_phase(assets, state, card, have)
     learner = learner_phase(assets, env, state, act, card)
-    del env, state, fenv, fstate, fout, out
+    del env, state, out
     trained = train_phase(card, have)
 
     print(json.dumps({"kernels": [{
@@ -1098,7 +1443,8 @@ def main() -> int:
                       TIMED_STEPS, "num_envs": N_ENVS, "obs_checksum": checksum,
                       "phases_ms": phases,
                       "nseg_mean": main_cmp["nseg_mean"]},
-        "learner_path": learner, "train_path": trained}), flush=True)
+        "npc_path": npc, "gym_path": gym, "learner_path": learner,
+        "train_path": trained}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

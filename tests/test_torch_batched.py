@@ -130,6 +130,43 @@ def test_batched_env_without_device_needs_a_gpu(tassets):
         tbatched.BatchedEnv(TEnvConfig(), tassets, B)
 
 
-def test_policy_npc_mode_is_not_ported(tassets):
-    with pytest.raises(NotImplementedError):
-        tbatched.make_env_fns(TEnvConfig(npc_mode="policy"), tassets)
+@pytest.mark.parametrize("with_final_obs", [False, True])
+def test_policy_mode_restarts_done_envs_from_zero_hidden(tassets,
+                                                         with_final_obs):
+    """Policy mode through the pooled auto-reset (every env ends at step 3,
+    more than the pool holds): the GRU's hidden state moves while an
+    episode runs and is zero again in every env that restarted."""
+    cfg = TEnvConfig(npc_mode="policy", reset_pool=4, max_environment_steps=3)
+    reset_fn, step_fn = tbatched.make_env_fns(cfg, tassets,
+                                              with_final_obs=with_final_obs)
+    g = torch.Generator().manual_seed(2)
+    state, _ = reset_fn(g, B)
+    assert state.npc_hidden.shape == (B, 96, 16) and not state.npc_hidden.any()
+    for i in range(4):
+        out = step_fn(state, _actions(), g)
+        state = out.state
+        running = state.step_idx > 0
+        assert (state.npc_hidden[running].abs().amax(dim=(1, 2)) > 0).all()
+        assert not state.npc_hidden[~running].any()
+        assert torch.equal(out.obs, tbatched._obs_batched(cfg, tassets, state))
+    assert (~running).sum() == 0 and i == 3
+
+
+def test_policy_pool_consumption_takes_zero_hidden(tassets):
+    """Done envs take pool entries with their (zero) hidden rows; the others
+    keep theirs."""
+    cfg = TEnvConfig(npc_mode="policy")
+    g = torch.Generator().manual_seed(3)
+    nxt = tcore.reset(cfg, tassets, B, g)
+    nxt = nxt.replace(npc_hidden=torch.randn(nxt.npc_hidden.shape, generator=g))
+    pool = tcore.reset(cfg, tassets, 4, g)
+    done = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.bool)
+    out, idx = tbatched._consume_pool(nxt, done, pool)
+    assert not out.npc_hidden[done].any()
+    assert torch.equal(out.npc_hidden[~done], nxt.npc_hidden[~done])
+    assert torch.equal(out.agent_states[done], pool.agent_states[idx[done]])
+
+
+def test_route_mode_carries_no_hidden_state(tassets):
+    _, _, outs = _rollout(tassets, with_final_obs=True)
+    assert all(out.state.npc_hidden is None for out in outs)

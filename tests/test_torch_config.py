@@ -133,7 +133,7 @@ def test_chip_smoke_recipes_equal_their_files():
         sys.path.remove(ROOT)
     assert sorted(chip_smoke.RECIPES) == sorted(
         [chip_smoke.PPO_YML, chip_smoke.A2C_YML, chip_smoke.TD3_YML,
-         chip_smoke.SAC_YML])
+         chip_smoke.SAC_YML, chip_smoke.NPC_SAC_YML])
     for path, raw in chip_smoke.RECIPES.items():
         with open(os.path.join(ROOT, path)) as f:
             assert raw == yaml.safe_load(f), path

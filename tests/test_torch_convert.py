@@ -303,3 +303,57 @@ def test_whole_td3_state_round_trips(tmp_path):
     assert st.critic_opt.state[st.critic.q1_out.weight]["exp_avg"].abs().sum() > 0
     back = convert.td3_state_from_torch(agent.export_state(), 20)
     _assert_trees_equal(back, tree)
+
+
+# --------------------------------------------------------------------------
+# the GRU NPC policy
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def npc_tree():
+    from tools import export_torch_npc
+    return export_torch_npc.restore(export_torch_npc.DEFAULT_PARAMS)
+
+
+def test_npc_params_round_trip_is_exact(npc_tree):
+    state = convert.npc_params_to_torch(npc_tree)
+    assert state["GRUCell_0.ir.weight"].shape == (16, 9)
+    assert "GRUCell_0.hr.bias" not in state and "GRUCell_0.hn.bias" in state
+    np.testing.assert_array_equal(
+        state["GRUCell_0.in.weight"].numpy(),
+        npc_tree["params"]["GRUCell_0"]["in"]["kernel"].T)
+    back = convert.npc_params_from_torch(state)
+    _assert_trees_equal(back, npc_tree)
+    again = convert.npc_params_to_torch(back)
+    for k in state:
+        assert torch.equal(again[k], state[k]), k
+
+
+def test_committed_npc_npz_is_the_conversion_of_the_msgpack(npc_tree):
+    from tools import export_torch_npc
+    from torchdriveenv_tpu_torch.npc import policy_net as tpn
+    want = export_torch_npc.npc_arrays(npc_tree)
+    shipped = tpn.default_params("cpu").state_dict()
+    with np.load(tpn.NPC_POLICY) as z:
+        assert sorted(z.files) == sorted(want) == sorted(shipped)
+        for k in z.files:
+            assert z[k].dtype == np.float32, k
+            np.testing.assert_array_equal(z[k], want[k], err_msg=k)
+            np.testing.assert_array_equal(shipped[k].numpy(), z[k], err_msg=k)
+
+
+@pytest.mark.parametrize("change", ["hidden-side bias", "missing layer",
+                                    "other width"])
+def test_npc_converter_refuses_other_trees(npc_tree, change):
+    import copy
+    tree = copy.deepcopy(npc_tree)
+    gru = tree["params"]["GRUCell_0"]
+    if change == "hidden-side bias":          # torch.nn.GRUCell's layout
+        gru["hr"]["bias"] = np.zeros(16, np.float32)
+    elif change == "missing layer":
+        del tree["params"]["Dense_1"]
+    else:
+        gru["iz"]["kernel"] = np.zeros((9, 32), np.float32)
+    with pytest.raises(ValueError, match="GRU NPC policy"):
+        convert.npc_params_to_torch(tree)

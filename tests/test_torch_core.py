@@ -260,3 +260,84 @@ def test_config_copies_the_jax_fields():
             assert getattr(jdef, f.name) == getattr(tdef, f.name), f.name
     assert [m.value for m in jc.CollisionMetric] == \
         [m.value for m in tc.CollisionMetric]
+
+
+# --------------------------------------------------------------------------
+# (d) policy mode: the GRU NPCs and their hidden state
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def policy_reset(jassets):
+    """Un-jitted JAX policy-mode reset of the 8 envs of (b)."""
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.asarray(_KEYS))
+    return jax.vmap(lambda k: jcore.reset(JEnvConfig(npc_mode="policy"),
+                                          jassets, k))(keys)
+
+
+def test_policy_reset_carries_a_zero_hidden_state(jassets, tassets,
+                                                  policy_reset):
+    keys = jax.vmap(jax.random.PRNGKey)(jnp.asarray(_KEYS))
+    draws = jax.vmap(functools.partial(_jax_draws, jassets))(keys)
+    draws = tcore.ResetDraws(**{k: torch.from_numpy(np.array(v))
+                                for k, v in draws.items()})
+    got = tcore.reset_from_draws(TEnvConfig(npc_mode="policy"), tassets,
+                                 draws).to_numpy()
+    want = np.asarray(policy_reset.npc_hidden)
+    assert want.shape == (8, 96, 16) and got["npc_hidden"].shape == want.shape
+    assert not got["npc_hidden"].any() and not want.any()
+    route = tcore.reset_from_draws(TEnvConfig(), tassets, draws)
+    assert route.npc_hidden is None and "npc_hidden" not in route.to_numpy()
+
+
+def test_policy_rollout_parity(jassets, tassets, policy_reset):
+    """10 policy-mode steps of 8 traffic envs, the JAX side un-jitted:
+    every field, the hidden state, reward and info at the golden tolerance,
+    flags exact. No agent's heading error comes within 1e-5 of the GRU
+    features' fold at pi/2 in these steps (counted on the port's side)."""
+    from test_torch_policy_net import _at_fold
+
+    jcfg, tcfg = JEnvConfig(npc_mode="policy"), TEnvConfig(npc_mode="policy")
+    jstep = jax.vmap(functools.partial(jcore.step, jcfg, jassets))
+    actions = np.tile(np.array([[0.4, 0.05]], np.float32), (8, 1))
+    jstate = policy_reset
+    tstate = tcore.EnvState.from_numpy(_np_tree(policy_reset), device="cpu")
+    assert tstate.npc_hidden is not None
+    for i in range(10):
+        assert not _at_fold(tassets, tstate.town.numpy(),
+                            tstate.agent_states.numpy()).any(), f"step {i}"
+        want = jstep(jstate, jnp.asarray(actions))
+        with torch.no_grad():
+            got = tcore.step(tcfg, tassets, tstate, torch.from_numpy(actions))
+        for k in tcore._FIELDS + ("npc_hidden",):
+            _compare(getattr(got[0], k), getattr(want[0], k), GOLDEN_TOL,
+                     f"step {i} {k}")
+        for j, name in ((1, "reward"), (2, "terminated"), (3, "truncated")):
+            _compare(got[j], want[j], GOLDEN_TOL, f"step {i} {name}")
+        for k in want[4]:
+            _compare(got[4][k], want[4][k], GOLDEN_TOL, f"step {i} {k}")
+        jstate, tstate = want[0], got[0]
+    assert np.abs(np.asarray(jstate.npc_hidden)).max() > 0.1
+    # the GRU, not the route follower, moved the NPCs
+    route = tcore.step(TEnvConfig(), tassets, tstate.replace(npc_hidden=None),
+                       torch.from_numpy(actions))[0]
+    assert not torch.equal(route.agent_states, got[0].agent_states)
+
+
+def test_state_round_trip_and_select_carry_the_hidden_state(tassets):
+    g = torch.Generator().manual_seed(4)
+    cfg = TEnvConfig(npc_mode="policy")
+    a = tcore.reset(cfg, tassets, 4, g)
+    b = tcore.reset(cfg, tassets, 4, g)
+    a = a.replace(npc_hidden=torch.randn(a.npc_hidden.shape, generator=g))
+    again = tcore.EnvState.from_numpy(a.to_numpy(), device="cpu")
+    assert torch.equal(again.npc_hidden, a.npc_hidden)
+    done = torch.tensor([True, False, True, False])
+    mixed = a.select(done, b)
+    assert not mixed.npc_hidden[done].any()
+    assert torch.equal(mixed.npc_hidden[~done], a.npc_hidden[~done])
+    taken = a.take(torch.tensor([3, 3, 0]))
+    assert torch.equal(taken.npc_hidden[1], a.npc_hidden[3])
+    with pytest.raises(ValueError, match="npc_hidden"):
+        tcore.step(cfg, tassets, a.replace(npc_hidden=None),
+                   torch.zeros(4, 2))

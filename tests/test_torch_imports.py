@@ -37,10 +37,12 @@ def test_the_package_has_the_slice_modules():
                 "models/policies", "models/convert", "rl/rollout",
                 "rl/buffer", "rl/sac", "rl/demo", "rl/evaluate",
                 "parallel/train_step", "rl/optim", "rl/ppo", "rl/a2c",
-                "rl/td3", "rl/train", "utils/__init__", "utils/video"):
+                "rl/td3", "rl/train", "utils/__init__", "utils/video",
+                "npc/policy_net", "env/gym_adapter", "utils/seeding"):
         assert f"torchdriveenv_tpu_torch/{mod}.py" in rel, mod
     for data in ("csrc/rasterizer.cu",
-                 "assets/deliverable_sac_stage1_actor.npz"):
+                 "assets/deliverable_sac_stage1_actor.npz",
+                 "assets/npc_gru_v1.npz"):
         assert os.path.exists(os.path.join(ROOT, "torchdriveenv_tpu_torch",
                                            data)), data
 

@@ -179,6 +179,29 @@ def test_resumed_run_equals_a_straight_one(tmp_path, algo):
         "full_latest", f"model_{n * spi}", f"model_{2 * n * spi}"}
 
 
+def test_policy_mode_run_resumes_bit_equal(tmp_path):
+    """SAC with the GRU driving the NPCs (traffic on): the hidden state
+    goes into ``full_latest`` and back, and a resumed run ends bit-equal to
+    a straight one."""
+    env = dict(ego_only=False, npc_mode="policy", max_environment_steps=5,
+               device="cpu", seed=3, simulator=dict(renderer=dict(obs_res=20)))
+    spi = SMALL_STEPS_PER_ITER["sac"]
+    straight = _cfg("sac", tmp_path / "straight", 4 * spi, env=env)
+    carry = _train(straight)
+    hidden = carry.rollout.env_state.npc_hidden
+    assert hidden.shape == (2, 96, 16) and hidden.abs().max() > 0
+    want = _carry_tree(straight, carry)
+    first = _cfg("sac", tmp_path / "resumed", 2 * spi, env=env)
+    _train(first)
+    full = train_mod.restore_checkpoint(
+        os.path.join(first.checkpoint_dir, "full_latest"), "cpu")
+    assert full["env_state"]["npc_hidden"].shape == (2, 96, 16)
+    second = _cfg("sac", tmp_path / "resumed", 4 * spi, env=env)
+    got = _carry_tree(second, _train(
+        second, resume_from=os.path.join(first.checkpoint_dir, "full_latest")))
+    _assert_trees_equal(got, want)
+
+
 def test_init_model_restores_the_agent_and_nothing_else(tmp_path):
     first = _cfg("sac", tmp_path / "a", 8)
     trained = _carry_tree(first, _train(first))

@@ -4,13 +4,16 @@ Runs the batched env step of ``env/batched.py`` (bicycle kinematics for up
 to 96 agents per env, IDM NPCs, OBB collision, SDF offroad, traffic
 lights, waypoint reward, pooled auto-reset, and the 3x64x64 birdview by
 the CUDA rasterizer) at 4096 envs on the train suite with the action
-[0.3, 0.0], the same workload as the JAX package's ``bench.py``.
+[0.3, 0.0], the same workload as the JAX package's ``bench.py``. ``--npc
+policy`` drives the NPCs with the GRU policy in place of the IDM route
+follower.
 
 Prints ONE JSON line: env-steps/s, the chunk times and their CoV guard, the
 obs checksum, the per-phase times (physics, render, auto-reset with every
 env done) and the card's name and power limit.
 
     python -m torchdriveenv_tpu_torch.bench [--num_envs 4096] [--chunk 64]
+        [--npc {route,policy}]
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torchdriveenv_tpu_torch.config import EnvConfig
 from torchdriveenv_tpu_torch.env import core
 from torchdriveenv_tpu_torch.env.batched import _autoreset, _obs_batched, make_env_fns
 from torchdriveenv_tpu_torch.maps.arrays import load_assets, resolve_device
+from torchdriveenv_tpu_torch.npc.policy_net import default_params
 
 
 def card_line() -> str:
@@ -57,8 +61,11 @@ def phase_ms(cfg, assets, state, generator) -> dict:
     n = state.town.shape[0]
     actions = torch.tensor([[0.3, 0.0]], device=assets.device).repeat(n, 1)
     done = torch.ones(n, dtype=torch.bool, device=assets.device)
+    npc_params = (default_params(assets.device) if cfg.npc_mode == "policy"
+                  else None)
     return {
-        "physics": timed_ms(lambda: core.step(cfg, assets, state, actions)),
+        "physics": timed_ms(lambda: core.step(cfg, assets, state, actions,
+                                              npc_params=npc_params)),
         "render": timed_ms(lambda: _obs_batched(cfg, assets, state)),
         "autoreset_pool_all_done": timed_ms(
             lambda: _autoreset(cfg, assets, state, done, generator)),
@@ -115,6 +122,9 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=5, help="timed chunks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no_render", action="store_true")
+    ap.add_argument("--npc", default="route", choices=["route", "policy"],
+                    help="NPC model: the IDM route follower (default) or the "
+                    "GRU policy (npc/policy_net.py)")
     ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
                     help="also trace 8 steps with torch.profiler, write the "
                     "chrome trace there and add the device's idle share and "
@@ -124,7 +134,7 @@ def main(argv=None):
     device = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = EnvConfig()
+    cfg = EnvConfig(npc_mode=args.npc)
     assets = load_assets("train", device=device)
     reset_fn, step_fn = make_env_fns(cfg, assets, render=not args.no_render)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -167,7 +177,7 @@ def main(argv=None):
         "value": args.num_envs * args.chunk / best,
         "median": args.num_envs * args.chunk / sorted(times)[len(times) // 2],
         "unit": f"env-steps/s ({args.num_envs} envs, "
-                f"render={not args.no_render})",
+                f"render={not args.no_render}, npc={args.npc})",
         "chunk_steps": args.chunk,
         "first_chunk_s": first_s,
         "chunk_times_s": times,

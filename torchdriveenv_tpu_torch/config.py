@@ -64,8 +64,8 @@ class EnvConfig:
     video_res: Optional[int] = 1024
     video_fov: Optional[float] = 500.0
     device: Optional[str] = None
-    # "route" = deterministic IDM route-follower (ported); "policy" = the GRU
-    # NPC policy, not yet ported (env/core.py raises for it)
+    # "route" = deterministic IDM route-follower; "policy" = the recurrent
+    # GRU NPC policy (npc/policy_net.py)
     npc_mode: str = "route"
     # fresh reset states sampled per batch step for the auto-reset:
     # 0 = one per env; N = a pool of N consumed rank-ordered by done envs

@@ -16,6 +16,7 @@ import torch
 from torchdriveenv_tpu_torch.config import EnvConfig
 from torchdriveenv_tpu_torch.env import core
 from torchdriveenv_tpu_torch.maps.arrays import Assets, resolve_device
+from torchdriveenv_tpu_torch.npc.policy_net import default_params
 from torchdriveenv_tpu_torch.ops.rasterizer_cuda import render_observation
 
 
@@ -96,11 +97,13 @@ def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
     ``render=False`` gives a zero placeholder obs. ``with_final_obs=True``
     also returns the pre-auto-reset observation (``StepOutput.final_obs``);
     in pooled mode only the pool is rendered a second time.
+
+    In ``npc_mode="policy"`` the shipped GRU NPC policy is loaded once onto
+    the assets' device and drives every step; done envs restart from a
+    zero hidden state, as every fresh reset has it.
     """
-    if cfg.npc_mode != "route":
-        raise NotImplementedError(
-            f"npc_mode={cfg.npc_mode!r}: only the 'route' NPC model is ported")
     dev = assets.device
+    npc_params = default_params(dev) if cfg.npc_mode == "policy" else None
 
     def obs_of(state: core.EnvState) -> torch.Tensor:
         if render:
@@ -115,8 +118,8 @@ def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
 
     def step_fn(state: core.EnvState, actions: torch.Tensor,
                 generator: torch.Generator) -> StepOutput:
-        next_state, reward, term, trunc, info = core.step(cfg, assets, state,
-                                                          actions)
+        next_state, reward, term, trunc, info = core.step(
+            cfg, assets, state, actions, npc_params=npc_params)
         done = term | trunc
         if not with_final_obs:
             out_state, _, _ = _autoreset(cfg, assets, next_state, done,

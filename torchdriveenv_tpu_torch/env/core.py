@@ -9,6 +9,10 @@ torch cannot reproduce JAX's threefry streams, so the reset is split in two:
 consumes (from a ``torch.Generator``), and ``reset_from_draws`` is a
 deterministic function of those draws. Tests feed it JAX's own draws.
 
+In ``npc_mode="policy"`` the GRU of ``npc/policy_net.py`` drives the NPCs
+and its hidden state rides in ``EnvState.npc_hidden``; in route mode that
+field is ``None``.
+
 Agent slot layout (ego first):
     slot 0            ego
     slots 1..S        scenario-predefined agents
@@ -33,6 +37,7 @@ from torchdriveenv_tpu_torch.maps.arrays import (
     sample_sdf_grad,
     sample_sdf_nearest,
 )
+from torchdriveenv_tpu_torch.npc import policy_net
 from torchdriveenv_tpu_torch.npc.route_follow import npc_actions
 from torchdriveenv_tpu_torch.ops.bicycle import bicycle_step
 from torchdriveenv_tpu_torch.ops.collision import ego_collision, ego_collision_discs
@@ -80,9 +85,15 @@ class EnvState:
     time0: torch.Tensor             # (B,) f32 traffic-light phase offset (s)
     target_idx: torch.Tensor        # (B,) int32 current waypoint target
     reached_num: torch.Tensor       # (B,) int32 waypoints reached
+    # (B, A, HIDDEN) GRU state in npc_mode="policy", else None
+    npc_hidden: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
+
+    def _fields(self) -> Tuple[str, ...]:
+        return _FIELDS + (("npc_hidden",) if self.npc_hidden is not None
+                          else ())
 
     def select(self, done: torch.Tensor, fresh: "EnvState") -> "EnvState":
         """Per env: ``fresh`` where ``done``, else this state."""
@@ -90,25 +101,35 @@ class EnvState:
             d = done.reshape(done.shape + (1,) * (n.dim() - done.dim()))
             return torch.where(d, f, n)
         return EnvState(**{k: sel(getattr(fresh, k), getattr(self, k))
-                           for k in _FIELDS})
+                           for k in self._fields()})
 
     def take(self, idx: torch.Tensor) -> "EnvState":
         """Gather envs ``idx`` (a pool lookup)."""
         idx = idx.long()
-        return EnvState(**{k: getattr(self, k)[idx] for k in _FIELDS})
+        return EnvState(**{k: getattr(self, k)[idx] for k in self._fields()})
 
     @classmethod
     def from_numpy(cls, d, device=None) -> "EnvState":
         """Build from numpy arrays: a mapping, or any object with the field
-        attributes (e.g. a JAX ``EnvState``; its ``rng`` and ``npc_hidden``
-        are not part of this state)."""
+        attributes (e.g. a JAX ``EnvState``, whose ``rng`` is not part of
+        this state). ``npc_hidden`` is read where it is there and not
+        ``None``."""
         dev = resolve_device(device)
-        get = d.__getitem__ if isinstance(d, dict) else lambda k: getattr(d, k)
-        return cls(**{k: torch.as_tensor(np.asarray(get(k)), device=dev)
-                      .to(_DTYPES[k]) for k in _FIELDS})
+        if isinstance(d, dict):
+            get, hidden = d.__getitem__, d.get("npc_hidden")
+        else:
+            get, hidden = (lambda k: getattr(d, k)), getattr(d, "npc_hidden",
+                                                            None)
+        out = {k: torch.as_tensor(np.asarray(get(k)), device=dev)
+               .to(_DTYPES[k]) for k in _FIELDS}
+        if hidden is not None:
+            out["npc_hidden"] = torch.as_tensor(np.asarray(hidden), device=dev
+                                                ).to(torch.float32)
+        return cls(**out)
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
-        return {k: getattr(self, k).detach().cpu().numpy() for k in _FIELDS}
+        return {k: getattr(self, k).detach().cpu().numpy()
+                for k in self._fields()}
 
 
 def _num_fixed(assets: Assets) -> int:
@@ -344,12 +365,15 @@ def reset_from_draws(cfg: EnvConfig, assets: Assets,
     period = maps.light_durations.sum()
     time0 = draws.phase_u * period
     zeros_i = torch.zeros(n, dtype=torch.int32, device=dev)
+    npc_hidden = (policy_net.init_hidden(n, a_max, dev)
+                  if cfg.npc_mode == "policy" else None)
     return EnvState(
         town=town.to(torch.int32), case=case.to(torch.int32),
         agent_states=states.to(f32), agent_attrs=attrs.to(f32),
         present=present, npc_target_speed=target_speed.to(f32),
         step_idx=zeros_i, time0=time0.to(f32),
         target_idx=torch.ones_like(zeros_i), reached_num=zeros_i.clone(),
+        npc_hidden=npc_hidden,
     )
 
 
@@ -361,15 +385,13 @@ def reset(cfg: EnvConfig, assets: Assets, n: int, generator: torch.Generator,
 
 
 def step(cfg: EnvConfig, assets: Assets, state: EnvState,
-         action: torch.Tensor,
+         action: torch.Tensor, npc_params: Optional[policy_net.NpcGRU] = None,
          ) -> Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor,
                     Dict[str, torch.Tensor]]:
     """One step of every env. action (B, 2) [acceleration, steering], clipped
-    to the action space. Returns (next_state, reward, terminated, truncated,
-    info), each with a leading B axis."""
-    if cfg.npc_mode != "route":
-        raise NotImplementedError(
-            f"npc_mode={cfg.npc_mode!r}: only the 'route' NPC model is ported")
+    to the action space. ``npc_params``: the GRU NPC policy in
+    ``npc_mode="policy"`` (default: the shipped one). Returns (next_state,
+    reward, terminated, truncated, info), each with a leading B axis."""
     suite, maps = assets.suite, assets.maps
     dt = cfg.simulator.dt
     case = state.case.long()
@@ -377,9 +399,19 @@ def step(cfg: EnvConfig, assets: Assets, state: EnvState,
     t_now = state.time0 + state.step_idx.to(torch.float32) * dt
 
     # NPC behavior + ego action
-    npc_act = npc_actions(maps, state.town, t_now, state.agent_states,
-                          state.agent_attrs, state.present,
-                          state.npc_target_speed)
+    npc_hidden = state.npc_hidden
+    npc_args = (maps, state.town, t_now, state.agent_states, state.agent_attrs,
+                state.present, state.npc_target_speed)
+    if cfg.npc_mode == "policy":
+        if npc_hidden is None:
+            raise ValueError("npc_mode='policy' needs a state with npc_hidden "
+                             "(one reset in policy mode)")
+        policy = (npc_params if npc_params is not None
+                  else policy_net.default_params(action.device))
+        npc_act, npc_hidden = policy_net.npc_policy_actions(
+            policy, *npc_args, npc_hidden)
+    else:
+        npc_act = npc_actions(*npc_args)
     low = device_constant(ACTION_LOW, action.device)
     high = device_constant(ACTION_HIGH, action.device)
     ego_act = torch.clamp(action, min=low, max=high)
@@ -453,5 +485,6 @@ def step(cfg: EnvConfig, assets: Assets, state: EnvState,
         step_idx=steps.to(torch.int32),
         target_idx=target_idx,
         reached_num=reached_num,
+        npc_hidden=npc_hidden,
     )
     return next_state, reward, terminated, truncated, info

@@ -17,7 +17,8 @@ What differs between the two layouts:
     the optax state sits one level deeper, after the clip's empty state.
 
 Both directions are exact (pure permutations), so a round trip returns the
-bits it was given.
+bits it was given. The GRU NPC policy (``npc/policy_net.py``) goes across
+under the same rules, with its key set checked against ``NpcGRU``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from torchdriveenv_tpu_torch.models.cnn import conv_out_res
+from torchdriveenv_tpu_torch.npc.policy_net import NpcGRU
 
 _CONV3_CHANNELS = 64
 SAC_PARAM_KEYS = (("actor_params", "actor"), ("critic_params", "critic"),
@@ -101,6 +103,35 @@ def params_from_torch(state_dict: Mapping[str, torch.Tensor],
             name, v = "kernel", _kernel_from_torch(tuple(path), v, obs_res)
         node[name] = np.ascontiguousarray(v)
     return {"params": root}
+
+
+def _check_npc_keys(state: Mapping[str, Any]) -> None:
+    want = {k: tuple(v.shape) for k, v in NpcGRU().state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in state.items()}
+    if got != want:
+        raise ValueError(
+            "not the GRU NPC policy's parameters: missing "
+            f"{sorted(set(want) - set(got))}, unexpected "
+            f"{sorted(set(got) - set(want))}, shapes differ at "
+            f"{sorted(k for k in set(got) & set(want) if got[k] != want[k])}")
+
+
+def npc_params_to_torch(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's GRU NPC parameters (``{"params": {"GRUCell_0":
+    {"ir": {"kernel" (9, 16), "bias"}, ..., "hr": {"kernel" (16, 16)}, ...},
+    "Dense_0": ..., "Dense_1": ...}}``, as ``flax.serialization`` restores
+    ``npc_gru_v1.msgpack``) -> ``NpcGRU``'s ``state_dict``."""
+    state = params_to_torch(tree)
+    _check_npc_keys(state)
+    return state
+
+
+def npc_params_from_torch(state_dict: Mapping[str, torch.Tensor]
+                          ) -> Dict[str, Any]:
+    """Inverse of ``npc_params_to_torch``: the tree the JAX package's
+    ``NpcGRU`` applies."""
+    _check_npc_keys(state_dict)
+    return params_from_torch(state_dict)
 
 
 def _adam_fields(opt):

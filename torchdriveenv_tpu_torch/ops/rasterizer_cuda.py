@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from torchdriveenv_tpu_torch.maps.arrays import MapArrays
+from torchdriveenv_tpu_torch.maps.arrays import MapArrays, device_constant
 from torchdriveenv_tpu_torch.ops import _build
 from torchdriveenv_tpu_torch.ops.rasterizer import (
     COLOR_BACKGROUND,
@@ -45,6 +45,8 @@ from torchdriveenv_tpu_torch.ops.rasterizer import (
     RENDER_MAX_WAYPOINTS,
     STOPLINE_HALF_THICK,
     WAYPOINT_RADIUS,
+    take_rows,
+    top_k_indices,
 )
 from torchdriveenv_tpu_torch.ops.traffic_lights import light_states_at
 
@@ -57,19 +59,6 @@ CULL_MARGIN = 0.25  # metres added to every cull radius (kCullMargin)
 # ---------------------------------------------------------------------------
 # per-env cull & pack (plain torch; shared by the kernel and its twin)
 # ---------------------------------------------------------------------------
-
-
-def _top_k_indices(key: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest along the last axis, ties to the lower index
-    (``lax.top_k``'s order; ``torch.topk`` promises none)."""
-    return torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
-
-
-def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (B, N, ...) rows idx (B, k) -> (B, k, ...)."""
-    shape = idx.shape + x.shape[2:]
-    flat_idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(shape)
-    return torch.gather(x, 1, flat_idx)
 
 
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -109,9 +98,9 @@ def prepare_obs_inputs(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
     wp_half_diag = fov * 0.7071 + WAYPOINT_RADIUS
     wp_visible = wp_mask & (wp_d2 < wp_half_diag * wp_half_diag)
     wk = min(RENDER_MAX_WAYPOINTS, w)
-    w_top = _top_k_indices(torch.where(wp_visible, -wp_d2, ninf), wk)
+    w_top = top_k_indices(torch.where(wp_visible, -wp_d2, ninf), wk)
     wp_rows = torch.cat([
-        _take_rows(waypoints, w_top),
+        take_rows(waypoints, w_top),
         torch.gather(wp_visible, 1, w_top)[..., None].to(torch.float32),
         torch.zeros(b, wk, 5, device=dev)], dim=-1)
     wp_block = _pad_rows(wp_rows, 8)
@@ -124,12 +113,12 @@ def prepare_obs_inputs(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
     half_diag_l = fov * 0.7071 + 8.0
     l_visible = maps.light_mask[tw] & (l_d2 < half_diag_l * half_diag_l)
     lk = min(RENDER_MAX_LIGHTS, p0_all.shape[1])
-    l_top = _top_k_indices(torch.where(l_visible, -l_d2, ninf), lk)
+    l_top = top_k_indices(torch.where(l_visible, -l_d2, ninf), lk)
     states_l = torch.gather(light_states_at(maps, town, t), 1, l_top)
-    palette = torch.tensor(COLOR_LIGHT, device=dev)
+    palette = device_constant(COLOR_LIGHT, dev)
     sl_color = palette[torch.clamp(states_l, 0, 2).long()]         # (B, lk, 3)
     sl_rows = torch.cat([
-        _take_rows(p0_all, l_top), _take_rows(p1_all, l_top), sl_color,
+        take_rows(p0_all, l_top), take_rows(p1_all, l_top), sl_color,
         torch.gather(l_visible, 1, l_top)[..., None].to(torch.float32)], dim=-1)
     sl_rows = _pad_rows(sl_rows, 4)
 
@@ -141,8 +130,8 @@ def prepare_obs_inputs(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
     d2 = (da * da).sum(dim=-1)
     visible = npc_mask & (d2 < half_diag_a * half_diag_a)
     k = min(RENDER_MAX_AGENTS, a)
-    top = _top_k_indices(torch.where(visible, -d2, ninf), k)
-    st, at = _take_rows(agent_states, top), _take_rows(agent_attrs, top)
+    top = top_k_indices(torch.where(visible, -d2, ninf), k)
+    st, at = take_rows(agent_states, top), take_rows(agent_attrs, top)
     agent_block = torch.stack([
         st[..., 0], st[..., 1], torch.cos(st[..., 2]), torch.sin(st[..., 2]),
         at[..., 0] * 0.5, at[..., 1] * 0.5,
