@@ -66,6 +66,26 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              (rollout / update split at the first agent.update) and must
              launch the rasterizer twice per env step; one PPO train step
              must make no synchronizing call.
+  8. multi   data parallelism over torch.distributed, its ranks run as
+             subprocesses of this script (--multi-worker), each with a
+             timeout. World 1 under nccl (torchrun-style variables,
+             WORLD_SIZE=1): two train steps of the stage-1 SAC recipe shrunk
+             to a 64-cell ring and 4 updates, and one PPO train step of the
+             ppo_1024.yml recipe at 256 envs, each equal to the run with no
+             process group, with no collective issued. World 2 under gloo,
+             both ranks on the one card: a 4096-env route-mode rollout of 8
+             steps (2048 envs per rank, through the kernel, one launch per
+             step on each rank) against one process (done flags exact,
+             states at atol 1e-4 / rtol 1e-5, at most a 1e-3 share of pixels
+             apart); a pooled-reset step with 1280 envs done, unevenly split
+             between the ranks; one f32 SAC and one PPO train step at 64
+             envs with cuDNN off, the parameters equal on both ranks and
+             within the CPU tests' Adam tolerance of one process, then one
+             more each whose synchronizing calls are counted by source
+             line. A one-process witness, cuDNN on and off: a SAC critic
+             gradient taken whole and as the sum over the two ranks' rows,
+             one Adam step apart. Two ranks on one card is a correctness
+             check: its times are not a scaling figure.
 Then it prints one JSON line describing each kernel and the paths, the
 card's name and power limit, and as the last line {"ok": true, "device":
 {...}}.
@@ -1171,6 +1191,519 @@ def train_phase(card, have) -> dict:
     return result
 
 
+# ---- the [multi] phase: data parallelism over torch.distributed ----------
+# its ranks are subprocesses of this script (``--multi-worker``), so no
+# process group outlives the phase
+MULTI_ENVS = 4096          # the route-mode rollout: 2048 envs per rank
+MULTI_STEPS = 8
+MULTI_SMALL_ENVS = 64      # the sharded SAC / PPO train steps
+MULTI_TIMEOUT_S = 480      # per subprocess
+# the world-1 SAC step: the stage-1 recipe shrunk to a 64-cell ring and 4
+# updates per train step; the world-1 PPO step: ppo_1024.yml's recipe at 256
+# envs, 8 steps per rollout, minibatches of 1024
+W1_SAC_CAPACITY, W1_SAC_UPDATES = 64, 4
+W1_PPO_ENVS = 256
+W1_PPO_KW = dict(RECIPES[PPO_YML]["algo_kwargs"], n_steps=8, batch_size=1024)
+# the Adam-parity tolerance of the CPU tests (tests/test_torch_sac.py)
+ADAM_ATOL, ADAM_SCALE_RTOL = 2e-5, 1e-5
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def adam_close(got: dict, want: dict) -> dict:
+    """The CPU tests' Adam-parity check over two ``export_state`` trees:
+    each float tensor within atol 2e-5 plus 1e-5 of its largest magnitude
+    but for at most 4 elements (or 1e-5 of them), none by more than 100
+    times; integer leaves exact. -> {ok, bit_equal, the worst tensor and
+    its largest difference over its tolerance, the elements over}."""
+    ok, bit_equal, worst, n_over_all = True, True, ("", 0.0), 0
+
+    def walk(g, w, name):
+        nonlocal ok, bit_equal, worst, n_over_all
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{name}.{k}" if name else k)
+            return
+        if not isinstance(w, torch.Tensor) or not w.is_floating_point():
+            same = (torch.equal(g, w) if isinstance(w, torch.Tensor)
+                    else g == w)
+            ok, bit_equal = ok and same, bit_equal and same
+            return
+        bit_equal = bit_equal and torch.equal(g, w)
+        diff = (g.double() - w.double()).abs()
+        tol = ADAM_ATOL + ADAM_SCALE_RTOL * float(w.abs().max())
+        n_over = int((diff > tol).sum())
+        n_over_all += n_over
+        ratio = float(diff.max()) / tol if diff.numel() else 0.0
+        worst = max(worst, (name, ratio), key=lambda t: t[1])
+        ok = ok and n_over <= max(4, w.numel() * 1e-5) and ratio <= 100
+
+    walk(got, want, "")
+    return dict(ok=ok, bit_equal=bit_equal, worst=worst[0],
+                worst_over_tol=worst[1], elements_over_tol=n_over_all)
+
+
+def _count_collectives():
+    """Wrap torch.distributed's all_reduce and broadcast with a counter."""
+    import torch.distributed as dist
+    counts = {"all_reduce": 0, "broadcast": 0}
+    for name in counts:
+        plain = getattr(dist, name)
+
+        def counted(*a, _plain=plain, _name=name, **k):
+            counts[_name] += 1
+            return _plain(*a, **k)
+
+        setattr(dist, name, counted)
+    return counts
+
+
+def _timed_train_steps(step_fn, assets, carry, n, dev):
+    ms = []
+    for _ in range(n):
+        _sync(dev)
+        t0 = time.perf_counter()
+        carry, m = step_fn(assets, carry)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return carry, {k: float(v) for k, v in m.items()}, ms
+
+
+def _w1_sac(mesh, assets, dev):
+    """Two train steps of the shrunk stage-1 SAC recipe (the first warms
+    up, the second updates)."""
+    from torchdriveenv_tpu_torch.config import construct_rl_training_config
+    from torchdriveenv_tpu_torch.parallel.train_step import make_offpolicy_train_fns
+    from torchdriveenv_tpu_torch.rl.demo import make_scripted_driver
+    from torchdriveenv_tpu_torch.rl.sac import SAC, SACConfig
+    cfg = construct_rl_training_config(copy.deepcopy(_SAC)).env
+    agent = SAC(SACConfig(**_SAC["algo_kwargs"]))
+    init_fn, step_fn = make_offpolicy_train_fns(
+        cfg, agent, RECIPE_ENVS, buffer_capacity=W1_SAC_CAPACITY,
+        steps_per_iter=RECIPE_STEPS_PER_ITER, updates_per_iter=W1_SAC_UPDATES,
+        demo_fn=make_scripted_driver(cfg, assets), demo_steps=RECIPE_DEMO_STEPS,
+        demo_envs=RECIPE_DEMO_ENVS, device=dev, mesh=mesh)
+    carry = init_fn(assets, RECIPE_SEED)
+    carry, metrics, ms = _timed_train_steps(step_fn, assets, carry, 2, dev)
+    return agent.export_state(), metrics, ms, carry
+
+
+def _w1_ppo(mesh, assets, dev):
+    from torchdriveenv_tpu_torch.config import construct_rl_training_config
+    from torchdriveenv_tpu_torch.parallel.train_step import make_onpolicy_train_fns
+    from torchdriveenv_tpu_torch.rl.ppo import PPO, PPOConfig
+    cfg = construct_rl_training_config(copy.deepcopy(RECIPES[PPO_YML])).env
+    agent = PPO(PPOConfig(**W1_PPO_KW))
+    init_fn, step_fn = make_onpolicy_train_fns(cfg, agent, W1_PPO_ENVS,
+                                               device=dev, mesh=mesh)
+    carry = init_fn(assets, 0)
+    carry, metrics, ms = _timed_train_steps(step_fn, assets, carry, 1, dev)
+    return agent.export_state(), metrics, ms, carry
+
+
+def _multi_world1(pm, dev) -> dict:
+    """World 1 under nccl (the card) or gloo (a CPU rehearsal): the shrunk
+    stage-1 SAC recipe and a PPO train step, first with no process group
+    (once to warm up, once for reference), then inside one: a one-rank
+    group makes no mesh and issues no collective."""
+    import torch.distributed as dist
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    assets = load_assets("train", device=dev)
+    steps = (("sac", _w1_sac, RECIPE_ENVS), ("ppo", _w1_ppo, W1_PPO_ENVS))
+    # with no process group: a warm-up run (the first pays cuDNN's and the
+    # allocator's set-up), then the reference
+    for _, fn, _ in steps:
+        fn(None, assets, dev)
+    ref = {name: fn(None, assets, dev) for name, fn, _ in steps}
+    assert pm.maybe_init_distributed(), "WORLD_SIZE=1 did not init"
+    counts = _count_collectives()
+    out = dict(backend=dist.get_backend(), world=dist.get_world_size())
+    for name, fn, n in steps:
+        mesh = pm.make_mesh(n)
+        assert mesh is None, f"a one-rank group made {mesh}"
+        state, metrics, ms, _ = fn(mesh, assets, dev)
+        r_state, r_metrics, r_ms, _ = ref[name]
+        out[name] = dict(adam_close(state, r_state), ms=ms, ref_ms=r_ms,
+                         metrics_equal=metrics == r_metrics,
+                         ms_diff=[a - b for a, b in zip(ms, r_ms)])
+        log(f"[multi world1] {name}: world {out['world']} ({out['backend']}) "
+            f"against no process group: bit-equal {out[name]['bit_equal']}, "
+            f"within the Adam tolerance {out[name]['ok']}, metrics equal "
+            f"{out[name]['metrics_equal']}; train step ms {ms} against "
+            f"{r_ms}")
+    out["collectives"] = dict(counts)
+    return out
+
+
+def _gathered_rollout(env, state, act, steps, pm, mesh, dev):
+    """``steps`` env steps (timed; kernel launches counted from 0); then the
+    per-step frames, done flags and agent states gathered over the mesh."""
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    rows = []
+    _sync(dev)
+    rc.render_obs_cuda.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = env.step(state, act)
+        state = out.state
+        rows.append(dict(obs=out.obs, terminated=out.terminated,
+                         truncated=out.truncated,
+                         agent_states=state.agent_states,
+                         step_idx=state.step_idx, case=state.case))
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = rc.render_obs_cuda.launches
+    return ([{k: pm.gather_rows(v, mesh) for k, v in r.items()}
+             for r in rows], ms, launches)
+
+
+def _compare_rows(got, want) -> dict:
+    """Sharded against one process: done flags and ints exact, agent states
+    at atol 1e-4 / rtol 1e-5, frames counted pixel by pixel."""
+    exact, states_ok, pixels, max_err = True, True, [], 0.0
+    for g, w in zip(got, want):
+        for k in ("terminated", "truncated", "step_idx", "case"):
+            exact = exact and torch.equal(g[k], w[k])
+        d = (g["agent_states"] - w["agent_states"]).abs()
+        max_err = max(max_err, float(d.max()))
+        states_ok = states_ok and bool(
+            (d <= 1e-4 + 1e-5 * w["agent_states"].abs()).all())
+        pixels.append(int((g["obs"] != w["obs"]).sum()))
+    total = got[0]["obs"].numel()
+    return dict(exact=exact, states_ok=states_ok, max_state_err=max_err,
+                pixels_apart=pixels, pixels_per_step=total,
+                pixels_ok=max(pixels) <= 1e-3 * total)
+
+
+def _small_learner(kind, mesh, assets, dev, n_envs):
+    """(agent, carry, step_fn) of an f32 train step at a small size: SAC
+    (64-pixel frames, batches of 128, two updates) or PPO (4 steps per
+    rollout, minibatches of 64, two epochs)."""
+    from torchdriveenv_tpu_torch.config import EnvConfig
+    from torchdriveenv_tpu_torch.parallel.train_step import (
+        make_offpolicy_train_fns, make_onpolicy_train_fns)
+    cfg = EnvConfig(max_environment_steps=3)
+    if kind == "sac":
+        from torchdriveenv_tpu_torch.rl.sac import SAC, SACConfig
+        agent = SAC(SACConfig(batch_size=128, learning_starts=0),
+                    compute_dtype=torch.float32)
+        init_fn, step_fn = make_offpolicy_train_fns(
+            cfg, agent, n_envs, buffer_capacity=16, steps_per_iter=2,
+            updates_per_iter=2, device=dev, mesh=mesh)
+    else:
+        from torchdriveenv_tpu_torch.rl.ppo import PPO, PPOConfig
+        agent = PPO(PPOConfig(n_steps=4, batch_size=64, n_epochs=2),
+                    compute_dtype=torch.float32)
+        init_fn, step_fn = make_onpolicy_train_fns(cfg, agent, n_envs,
+                                                   device=dev, mesh=mesh)
+    return agent, init_fn(assets, 0), step_fn
+
+
+def _small_train_step(kind, mesh, assets, dev, n_envs):
+    """One timed small train step -> (agent state after it, metrics, ms,
+    and the synchronizing calls of one more step by source line, or None
+    off the card)."""
+    agent, carry, step_fn = _small_learner(kind, mesh, assets, dev, n_envs)
+    carry, metrics, ms = _timed_train_steps(step_fn, assets, carry, 1, dev)
+    state = copy.deepcopy(agent.export_state())
+    syncs = None
+    if torch.device(dev).type == "cuda":
+        _, syncs = synchronizing_calls(lambda: step_fn(assets, carry))
+    return state, metrics, ms, syncs
+
+
+def _split_grad_witness(assets, dev, n_envs) -> dict:
+    """One process, no collective: does taking a convolution's gradient
+    over each rank's rows, then summing, move SAC past the Adam tolerance by
+    itself? After one small SAC train step, a 128-row replay batch; the
+    critic's loss gradient (its squared error to the batch's rewards) taken
+    over all rows, and over the rows of each half of the envs (the two
+    ranks' row shapes) then summed; one fresh Adam step of the agent's
+    hyperparameters from the same parameters with each. cuDNN on and off."""
+    from torchdriveenv_tpu_torch.rl import buffer as replay
+    from torchdriveenv_tpu_torch.rl.optim import apply_grads
+    out = {}
+    for cudnn in (True, False):
+        torch.backends.cudnn.enabled = cudnn
+        agent, carry, step_fn = _small_learner("sac", None, assets, dev,
+                                               n_envs)
+        carry, _ = step_fn(assets, carry)
+        critic, b = agent.state.critic, agent.cfg.batch_size
+        g = torch.Generator(device=dev)
+        g.manual_seed(7)
+        env_idx = torch.randint(0, n_envs, (b,), generator=g, device=dev)
+        off = torch.randint(0, max(int(carry.buffer.filled) - 1, 1), (b,),
+                            generator=g, device=dev)
+        batch = replay.sample(carry.buffer, b, 3, indices=(env_idx, off))
+        halves = [torch.nonzero(env_idx < n_envs // 2)[:, 0],
+                  torch.nonzero(env_idx >= n_envs // 2)[:, 0]]
+        params = list(critic.parameters())
+
+        def grads(rows):
+            q1, q2 = critic(batch["obs"][rows], batch["action"][rows])
+            y = batch["reward"][rows]
+            loss = ((q1 - y) ** 2 + (q2 - y) ** 2).sum() / b
+            return torch.autograd.grad(loss, params)
+
+        whole = grads(torch.arange(b, device=dev))
+        split = [x + y for x, y in zip(grads(halves[0]), grads(halves[1]))]
+        hyper = {k: agent.state.critic_opt.param_groups[0][k]
+                 for k in ("lr", "betas", "eps")}
+
+        def adam_step(gs):
+            ps = [p.detach().clone().requires_grad_() for p in params]
+            apply_grads(torch.optim.Adam(ps, **hyper), ps, gs)
+            return {n: p.detach() for (n, _), p in
+                    zip(critic.named_parameters(), ps)}
+
+        grad_err = max(float((x - y).abs().max()) for x, y in zip(split, whole))
+        out["cudnn" if cudnn else "no_cudnn"] = dict(
+            adam_close(adam_step(split), adam_step(whole)),
+            rows=[int(h.numel()) for h in halves], max_grad_diff=grad_err)
+    torch.backends.cudnn.enabled = True
+    return out
+
+
+def _flat_floats(tree) -> torch.Tensor:
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, torch.Tensor):
+            out.append(t.detach().double().reshape(-1))
+    walk(tree)
+    return torch.cat(out)
+
+
+def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
+                  small_envs=MULTI_SMALL_ENVS, reset_pool=None) -> dict:
+    """World 2 under gloo; on the card both ranks share the one device.
+    ``reset_pool``: the EnvConfig default unless given."""
+    import torch.distributed as dist
+    from torchdriveenv_tpu_torch.config import EnvConfig
+    from torchdriveenv_tpu_torch.env.batched import BatchedEnv
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    assert pm.maybe_init_distributed(backend="gloo", timeout_s=MULTI_TIMEOUT_S)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = pm.make_mesh(n_envs)
+    assets = load_assets("train", device=dev)
+    cfg = EnvConfig() if reset_pool is None else EnvConfig(reset_pool=reset_pool)
+    out = dict(backend=dist.get_backend(), world=world, envs=n_envs,
+               envs_per_rank=mesh.local_envs, steps=steps)
+
+    def per_rank(x: float) -> list:
+        v = torch.zeros(world, dtype=torch.float64)
+        v[rank] = x
+        pm.all_reduce_([v], mesh)
+        return v.tolist()
+
+    # ---- a. the route-mode rollout through the kernel
+    env = BatchedEnv(cfg, assets, n_envs, device=dev, seed=0, mesh=mesh)
+    state, _ = env.reset()
+    act = torch.tensor([[0.3, 0.02]], device=dev).repeat(mesh.local_envs, 1)
+    got, ms, launches = _gathered_rollout(env, state, act, steps, pm, mesh, dev)
+    out["rollout_ms_per_step"] = per_rank(ms)
+    out["launches"] = [int(x) for x in per_rank(launches)]
+    out["done"] = int(sum(int((r["terminated"] | r["truncated"]).sum())
+                          for r in got))
+    # ---- b. one pooled-reset step with most envs done, unevenly split:
+    # every second env of rank 0's half, every eighth of rank 1's
+    g_idx = torch.arange(n_envs, device=dev)
+    ends = torch.where(g_idx < n_envs // 2, g_idx % 2 == 0, g_idx % 8 == 0)
+    pool_env = BatchedEnv(cfg, assets, n_envs, device=dev, seed=1, mesh=mesh)
+    pstate, _ = pool_env.reset()
+    last = torch.where(ends, cfg.max_environment_steps - 1, 0).to(torch.int32)
+    pstate = pstate.replace(step_idx=pm.env_rows(last, mesh))
+    pgot, _, _ = _gathered_rollout(pool_env, pstate, act, 1, pm, mesh, dev)
+    # ---- c. one SAC and one PPO train step: parameters equal on the ranks.
+    # cuDNN is off here and in the reference: its convolution algorithms
+    # differ by batch shape (a rank's ~64 rows against 128), which SAC's
+    # Adam turns into steps past the tolerance (the witness below)
+    torch.backends.cudnn.enabled = False
+    small = {}
+    for kind in ("sac", "ppo"):
+        state_k, metrics, k_ms, syncs = _small_train_step(
+            kind, pm.make_mesh(small_envs), assets, dev, small_envs)
+        flat = _flat_floats(state_k).to(dev)
+        first = flat.clone()
+        dist.broadcast(first, src=0)
+        small[kind] = dict(
+            state=state_k, metrics=metrics, ms=k_ms, syncs=syncs,
+            ranks_equal=all(x == 1.0 for x in per_rank(
+                float(torch.equal(flat, first)))))
+    torch.backends.cudnn.enabled = True
+    del first, flat
+    if rank != 0:
+        return out
+    # ---- the one-process references, on rank 0 alone (no collective)
+    ref_env = BatchedEnv(cfg, assets, n_envs, device=dev, seed=0)
+    ref_state, _ = ref_env.reset()
+    ref_act = act[:1].repeat(n_envs, 1)
+    want, ref_ms, ref_launches = _gathered_rollout(
+        ref_env, ref_state, ref_act, steps, pm, None, dev)
+    out["rollout"] = _compare_rows(got, want)
+    out["one_process_ms_per_step"] = ref_ms
+    out["one_process_launches"] = ref_launches
+    ref_pool = BatchedEnv(cfg, assets, n_envs, device=dev, seed=1)
+    rpstate, _ = ref_pool.reset()
+    rpstate = rpstate.replace(step_idx=last)
+    pwant, _, _ = _gathered_rollout(ref_pool, rpstate, ref_act, 1, pm, None,
+                                    dev)
+    done = pwant[0]["terminated"] | pwant[0]["truncated"]
+    out["pooled"] = dict(_compare_rows(pgot, pwant), pool=cfg.reset_pool,
+                         done=int(done.sum()),
+                         done_rank0=int(done[:n_envs // 2].sum()),
+                         done_rank1=int(done[n_envs // 2:].sum()))
+    torch.backends.cudnn.enabled = False
+    for kind, s in small.items():
+        r_state, r_metrics, r_ms, r_syncs = _small_train_step(
+            kind, None, assets, dev, small_envs)
+        out[kind] = dict(
+            adam_close(s["state"], r_state), ranks_equal=s["ranks_equal"],
+            ms=s["ms"], one_process_ms=r_ms, envs=small_envs,
+            syncs=s["syncs"], one_process_syncs=r_syncs,
+            metrics={k: [s["metrics"][k], r_metrics[k]] for k in r_metrics})
+    torch.backends.cudnn.enabled = True
+    out["split_grad_witness"] = _split_grad_witness(assets, dev, small_envs)
+    return out
+
+
+def multi_worker(args) -> int:
+    """A rank of the [multi] phase: ``--multi-worker <case> <out_dir>``,
+    with RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT set."""
+    import torch.distributed as dist
+    from torchdriveenv_tpu_torch.parallel import mesh as pm
+    case, out_dir = args
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    res = (_multi_world1(pm, dev) if case == "world1"
+           else _multi_world2(pm, dev))
+    if dist.get_rank() == 0:
+        with open(os.path.join(out_dir, f"{case}.json"), "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def multi_phase(card) -> dict:
+    """Phase 8: data parallelism. World 1 under nccl must equal the run
+    with no process group; world 2 under gloo, both ranks on the one card,
+    must equal one process on the 4096-env rollout, a pooled-reset step and
+    small SAC / PPO train steps. Each case runs in subprocesses with a
+    timeout; any failure fails the phase."""
+    import socket
+    import subprocess
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    def run(case, world, tmp):
+        env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multi-worker", case,
+             tmp], env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        t0 = time.perf_counter()
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MULTI_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            lines = [ln for ln in text.splitlines()
+                     if "warn_or_error_on_sync" not in ln]
+            for line in lines[-40:]:
+                log(f"[multi {case} rank {r}] {line}")
+            check(p.returncode == 0, f"[multi] {case} rank {r} exited "
+                  f"{p.returncode}")
+        with open(os.path.join(tmp, f"{case}.json")) as f:
+            res = json.load(f)
+        res["wall_s"] = time.perf_counter() - t0
+        # synchronizations reported by threads Python does not see (gloo's
+        # workers, which copy CUDA tensors through the host), per rank
+        res["thread_syncs"] = [t.count("warn_or_error_on_sync") for t in outs]
+        return res
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        w1 = run("world1", 1, tmp)
+        w2 = run("world2", 2, tmp)
+
+    log(f"[multi] world 1 ({w1['backend']}): collectives issued "
+        f"{w1['collectives']}; train step ms, mesh against none: SAC "
+        f"{w1['sac']['ms']} / {w1['sac']['ref_ms']}, PPO {w1['ppo']['ms']} / "
+        f"{w1['ppo']['ref_ms']} [{card}]")
+    check(w1["backend"] == "nccl" and w1["world"] == 1,
+          f"world 1 ran under {w1['backend']}")
+    check(sum(w1["collectives"].values()) == 0,
+          f"a one-rank mesh issued collectives: {w1['collectives']}")
+    for k in ("sac", "ppo"):
+        check(w1[k]["ok"] and w1[k]["metrics_equal"],
+              f"world 1 {k} differs from the run with no process group: "
+              f"{w1[k]}")
+    ro, po = w2["rollout"], w2["pooled"]
+    log(f"[multi] world 2 (gloo, both ranks on one card): {w2['envs']} envs, "
+        f"{w2['envs_per_rank']} per rank, {w2['steps']} steps: done flags "
+        f"exact {ro['exact']}, max state error {ro['max_state_err']:.3e}, "
+        f"pixels apart per step {ro['pixels_apart']} of {ro['pixels_per_step']}"
+        f"; {w2['done']} episodes ended; kernel launches per rank "
+        f"{w2['launches']}")
+    log(f"[multi] world 2 ms per env step: ranks {w2['rollout_ms_per_step']}, "
+        f"one process {w2['one_process_ms_per_step']:.2f} (two ranks share "
+        f"one card: a correctness check, not a scaling figure) [{card}]")
+    log(f"[multi] pooled step: pool {po['pool']}, done {po['done']} "
+        f"({po['done_rank0']} on rank 0, {po['done_rank1']} on rank 1), "
+        f"exact {po['exact']}, max state error {po['max_state_err']:.3e}, "
+        f"pixels apart {po['pixels_apart']}")
+    for k in ("sac", "ppo"):
+        log(f"[multi] world 2 {k} train step ({w2[k]['envs']} envs, f32, "
+            f"cuDNN off): ranks equal {w2[k]['ranks_equal']}, within the "
+            f"Adam tolerance of one process {w2[k]['ok']} "
+            f"({w2[k]['elements_over_tol']} elements over it; worst "
+            f"{w2[k]['worst']} at {w2[k]['worst_over_tol']:.3f} of its "
+            f"tolerance); ms {w2[k]['ms']} against {w2[k]['one_process_ms']}"
+            f"; synchronizing calls in the next train step, rank 0 "
+            f"{w2[k]['syncs']}, one process {w2[k]['one_process_syncs']}")
+    log(f"[multi] world 2: synchronizations outside Python's threads in "
+        f"those two counted train steps (gloo's workers), per rank "
+        f"{w2['thread_syncs']}")
+    for k, v in w2["split_grad_witness"].items():
+        log(f"[multi] one-process witness ({k}): SAC critic gradient over "
+            f"rows {v['rows']} summed against all 128, max difference "
+            f"{v['max_grad_diff']:.3e}; after one Adam step "
+            f"{v['elements_over_tol']} elements over the Adam tolerance, "
+            f"worst {v['worst']} at {v['worst_over_tol']:.3f} of it")
+    check(w2["backend"] == "gloo" and w2["world"] == 2, "world 2 set-up")
+    check(ro["exact"] and ro["states_ok"] and ro["pixels_ok"],
+          f"the sharded rollout differs from one process: {ro}")
+    check(all(n == MULTI_STEPS for n in w2["launches"]),
+          f"kernel launches per rank {w2['launches']}, not one per step")
+    check(po["exact"] and po["states_ok"] and po["pixels_ok"]
+          and po["done"] > po["pool"] and po["done_rank0"] > po["done_rank1"],
+          f"the pooled-reset step differs from one process: {po}")
+    for k in ("sac", "ppo"):
+        check(w2[k]["ranks_equal"], f"world 2 {k}: the ranks differ")
+        check(w2[k]["ok"], f"world 2 {k} train step: {w2[k]}")
+        check(not w2[k]["one_process_syncs"],
+              f"one process {k} train step synchronized: "
+              f"{w2[k]['one_process_syncs']}")
+    return dict(world1=w1, world2=w2)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -1420,6 +1953,7 @@ def main() -> int:
     learner = learner_phase(assets, env, state, act, card)
     del env, state, out
     trained = train_phase(card, have)
+    multi = multi_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "rasterizer",
@@ -1433,6 +1967,7 @@ def main() -> int:
         "bound_ms": main_cmp["bound_ms"],
         "bound_by": main_cmp["bound_by"],
         "library_ms": None,
+        "multi_launches": multi["world2"]["launches"],
         "bytes_bound_ms": main_cmp["bytes_bound_ms"],
         "scan_all_operations_bound_ms": main_cmp["scan_all_operations_bound_ms"],
         "cull": {k: main_cmp[k] for k in (
@@ -1444,7 +1979,7 @@ def main() -> int:
                       "phases_ms": phases,
                       "nseg_mean": main_cmp["nseg_mean"]},
         "npc_path": npc, "gym_path": gym, "learner_path": learner,
-        "train_path": trained}), flush=True)
+        "train_path": trained, "multi_path": multi}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1453,4 +1988,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-worker"]:
+        sys.exit(multi_worker(sys.argv[2:]))
     sys.exit(main())

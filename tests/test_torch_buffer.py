@@ -114,9 +114,12 @@ def test_add_stream_matches_jax_exactly(both):
 @pytest.mark.parametrize("after", [1, 2, 7, N, N + 1, STEPS])
 def test_sample_matches_jax_exactly(both, after):
     got, want = both[2][after]
-    assert sorted(got) == sorted(want) == sorted(
+    assert sorted(got) == sorted(
         ["obs", "action", "reward", "next_obs", "discount_mask", "done",
-         "is_demo"])
+         "is_demo", "pos"])
+    assert sorted(want) == sorted(k for k in got if k != "pos")
+    # one process: every row of the batch is this process's
+    assert torch.equal(got["pos"], torch.arange(64))
     for k in want:
         t, j = got[k].numpy(), np.asarray(want[k])
         assert t.dtype == j.dtype and t.shape == j.shape, k

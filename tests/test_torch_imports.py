@@ -38,7 +38,8 @@ def test_the_package_has_the_slice_modules():
                 "rl/buffer", "rl/sac", "rl/demo", "rl/evaluate",
                 "parallel/train_step", "rl/optim", "rl/ppo", "rl/a2c",
                 "rl/td3", "rl/train", "utils/__init__", "utils/video",
-                "npc/policy_net", "env/gym_adapter", "utils/seeding"):
+                "npc/policy_net", "env/gym_adapter", "utils/seeding",
+                "parallel/mesh", "maps/compile", "data_utils"):
         assert f"torchdriveenv_tpu_torch/{mod}.py" in rel, mod
     for data in ("csrc/rasterizer.cu",
                  "assets/deliverable_sac_stage1_actor.npz",

@@ -230,8 +230,8 @@ def test_full_snapshot_cadence(tmp_path, monkeypatch, every, saves):
     plain = train_mod.save_checkpoint
     monkeypatch.setattr(
         train_mod, "save_checkpoint",
-        lambda d, name, carry, agent: calls.append(carry.env_steps)
-        or plain(d, name, carry, agent))
+        lambda d, name, carry, agent, mesh=None:
+        calls.append(carry.env_steps) or plain(d, name, carry, agent))
     cfg = _cfg("a2c", tmp_path, 16, full_snapshot_every=every,
                wandb_callback=dict(model_save_freq=4))
     _train(cfg)

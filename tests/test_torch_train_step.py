@@ -433,15 +433,15 @@ def test_onpolicy_train_step_matches_jax(assets, monkeypatch, algo="ppo"):
     fresh = [tcore.EnvState.from_numpy(s, device="cpu")
              for s in seen["resets"]]
     monkeypatch.setattr(tcore, "reset",
-                        lambda cfg, assets, n, generator, case=None:
-                        fresh.pop(0))
+                        lambda cfg, assets, n, generator, case=None,
+                        mesh=None: fresh.pop(0))
     plain_select, plain_update = tagent.select_action, tagent.update
     got = {}
 
-    def select(obs, generator):
+    def select(obs, generator, noise=None):
         return plain_select(obs, noise=noises.pop(0))
 
-    def update(rollout, last_value, generator=None):
+    def update(rollout, last_value, generator=None, mesh=None):
         got.update(rollout=rollout, last_value=last_value)
         if algo == "ppo":
             return plain_update(rollout, last_value,

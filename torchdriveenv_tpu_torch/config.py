@@ -1,7 +1,8 @@
 """Configuration tree: the port's own copy of the JAX package's
 ``RendererConfig``, ``CollisionMetric``, ``TorchDriveConfig``, ``EnvConfig``
-and the training configs (``RlTrainingConfig`` and its callbacks), field for
-field, with the loaders that build them from the repo's YAML files.
+and the training configs (``RlTrainingConfig`` and its callbacks), and the
+scenario schemas ``Scenario`` / ``WaypointSuite``, field for field, with the
+loaders that build them from the repo's YAML files.
 
 PyYAML is imported only where a file is opened (``load_env_config``,
 ``load_rl_training_config``); a parsed dict becomes a config through
@@ -17,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 
 @dataclass
@@ -194,3 +195,27 @@ def load_env_config(yaml_path: str) -> EnvConfig:
 
 def load_rl_training_config(yaml_path: str) -> RlTrainingConfig:
     return construct_rl_training_config(_load_yaml(yaml_path))
+
+
+# ---------------------------------------------------------------------------
+# Scenario data schemas (reference: gym_env.py:56-68)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Scenario:
+    """Per-case predefined agents (reference: gym_env.py:56-61)."""
+
+    agent_states: Optional[List[List[float]]] = None       # [x, y, psi, speed]
+    agent_attributes: Optional[List[List[float]]] = None   # [length, width, rear_axis_offset]
+    recurrent_states: Optional[List[List[float]]] = None   # opaque NPC memory
+
+
+@dataclass
+class WaypointSuite:
+    """The scenario suite (reference: gym_env.py:63-68)."""
+
+    locations: Optional[List[str]] = None
+    waypoint_suite: Optional[List[List[List[float]]]] = None
+    car_sequence_suite: Optional[List[Optional[Dict[int, List[List[float]]]]]] = None
+    scenarios: Optional[List[Optional[Scenario]]] = None

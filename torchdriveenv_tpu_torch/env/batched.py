@@ -18,6 +18,7 @@ from torchdriveenv_tpu_torch.env import core
 from torchdriveenv_tpu_torch.maps.arrays import Assets, resolve_device
 from torchdriveenv_tpu_torch.npc.policy_net import default_params
 from torchdriveenv_tpu_torch.ops.rasterizer_cuda import render_observation
+from torchdriveenv_tpu_torch.parallel.mesh import Mesh, offset_of
 
 
 class StepOutput(NamedTuple):
@@ -52,17 +53,24 @@ def _obs_batched(cfg: EnvConfig, assets: Assets,
 
 
 def _consume_pool(next_state: core.EnvState, done: torch.Tensor,
-                  fresh_pool: core.EnvState):
+                  fresh_pool: core.EnvState, mesh: Optional[Mesh] = None):
     """Done envs take pool entries in rank order (reused modulo the pool
-    size when more envs finish than the pool holds). Returns (state, idx)."""
+    size when more envs finish than the pool holds). Returns (state, idx).
+
+    With a ``mesh`` the order is global: this rank's done envs come
+    after the done envs of the lower ranks."""
     pool = fresh_pool.town.shape[0]
-    rank = torch.cumsum(done, dim=0) - 1
+    count = torch.cumsum(done, dim=0)
+    rank = count - 1
+    if mesh is not None:
+        rank = rank + offset_of(count[-1], mesh)
     idx = torch.remainder(rank, pool)
     return next_state.select(done, fresh_pool.take(idx)), idx
 
 
 def _autoreset(cfg: EnvConfig, assets: Assets, next_state: core.EnvState,
-               done: torch.Tensor, generator: torch.Generator):
+               done: torch.Tensor, generator: torch.Generator,
+               mesh: Optional[Mesh] = None):
     """Auto-reset over the batch.
 
     Exact mode (reset_pool=0, or a batch no larger than the pool): every env
@@ -70,15 +78,19 @@ def _autoreset(cfg: EnvConfig, assets: Assets, next_state: core.EnvState,
     < B): R fresh states are drawn per step and done envs consume them
     rank-ordered.
 
+    With a ``mesh`` B is the global batch: exact mode draws all B
+    resets and resets this rank's rows; pooled mode draws the whole pool on
+    every rank and consumes it in global rank order.
+
     Returns (out_state, fresh_pool or None, pool_idx or None).
     """
-    b = done.shape[0]
+    b = mesh.num_envs if mesh is not None else done.shape[0]
     pool = cfg.reset_pool
     if pool and pool < b:
         fresh_pool = core.reset(cfg, assets, pool, generator)
-        out, idx = _consume_pool(next_state, done, fresh_pool)
+        out, idx = _consume_pool(next_state, done, fresh_pool, mesh)
         return out, fresh_pool, idx
-    fresh = core.reset(cfg, assets, b, generator)
+    fresh = core.reset(cfg, assets, b, generator, mesh=mesh)
     return next_state.select(done, fresh), None, None
 
 
@@ -88,11 +100,17 @@ def _no_obs(batch: int, cfg: EnvConfig, device) -> torch.Tensor:
 
 
 def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
-                 with_final_obs: bool = False) -> Tuple[Callable, Callable]:
+                 with_final_obs: bool = False, mesh: Optional[Mesh] = None
+                 ) -> Tuple[Callable, Callable]:
     """Batched (reset_fn, step_fn) on the assets' device.
 
     reset_fn(generator, num_envs, cases=None) -> (state, obs)
     step_fn(state, actions (B, 2), generator) -> StepOutput
+
+    ``mesh``: this rank's rows of a data-parallel run
+    (``parallel/mesh.py``). ``num_envs`` and ``cases`` stay global; the
+    states, actions and outputs are this rank's rows; every draw is made at
+    global width, so W ranks step the envs of one process.
 
     ``render=False`` gives a zero placeholder obs. ``with_final_obs=True``
     also returns the pre-auto-reset observation (``StepOutput.final_obs``);
@@ -113,7 +131,8 @@ def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
     def reset_fn(generator: torch.Generator, num_envs: int,
                  cases: Optional[torch.Tensor] = None):
         """cases: optional (B,) fixed scenario indices."""
-        state = core.reset(cfg, assets, num_envs, generator, case=cases)
+        state = core.reset(cfg, assets, num_envs, generator, case=cases,
+                           mesh=mesh)
         return state, obs_of(state)
 
     def step_fn(state: core.EnvState, actions: torch.Tensor,
@@ -123,13 +142,13 @@ def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
         done = term | trunc
         if not with_final_obs:
             out_state, _, _ = _autoreset(cfg, assets, next_state, done,
-                                         generator)
+                                         generator, mesh)
             return StepOutput(out_state, obs_of(out_state), reward, term,
                               trunc, info)
 
         final_obs = obs_of(next_state)
         out_state, fresh_pool, idx = _autoreset(cfg, assets, next_state, done,
-                                                generator)
+                                                generator, mesh)
         if not render:
             obs = final_obs
         else:
@@ -147,12 +166,14 @@ def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
 class BatchedEnv:
     """A fixed batch of envs on one device, with its own generator.
 
-    ``device=None`` means the GPU, and raises when there is none.
+    ``device=None`` means the GPU, and raises when there is none. With a
+    ``mesh``, ``num_envs`` is the global count and this process holds the
+    rank's rows of it.
     """
 
     def __init__(self, cfg: EnvConfig, assets: Assets, num_envs: int,
                  device=None, seed: int = 0, render: bool = True,
-                 with_final_obs: bool = False):
+                 with_final_obs: bool = False, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         if assets.device.type != self.device.type:
             raise ValueError(f"assets are on {assets.device}, the env on "
@@ -163,7 +184,8 @@ class BatchedEnv:
         self.generator = torch.Generator(device=assets.device)
         self.generator.manual_seed(seed)
         self._reset, self._step = make_env_fns(
-            cfg, assets, render=render, with_final_obs=with_final_obs)
+            cfg, assets, render=render, with_final_obs=with_final_obs,
+            mesh=mesh)
 
     def reset(self, cases: Optional[torch.Tensor] = None):
         return self._reset(self.generator, self.num_envs, cases)

@@ -44,6 +44,7 @@ from torchdriveenv_tpu_torch.ops.collision import ego_collision, ego_collision_d
 from torchdriveenv_tpu_torch.ops.offroad import compute_offroad
 from torchdriveenv_tpu_torch.ops.traffic_lights import traffic_light_violation
 from torchdriveenv_tpu_torch.ops.waypoints import waypoint_reached
+from torchdriveenv_tpu_torch.parallel.mesh import Mesh, shard_carry
 
 # action bounds [accel, steer]
 ACTION_LOW = (-1.0, -0.3)
@@ -378,10 +379,15 @@ def reset_from_draws(cfg: EnvConfig, assets: Assets,
 
 
 def reset(cfg: EnvConfig, assets: Assets, n: int, generator: torch.Generator,
-          case: Optional[torch.Tensor] = None) -> EnvState:
-    """Start n new episodes with randomness from ``generator``."""
-    return reset_from_draws(cfg, assets,
-                            sample_reset_draws(n, generator, assets, cfg, case))
+          case: Optional[torch.Tensor] = None,
+          mesh: Optional[Mesh] = None) -> EnvState:
+    """Start n new episodes with randomness from ``generator``. With a
+    ``mesh``, ``n`` (and ``case``) are at global width: the draws
+    of all n envs are made on every rank, and only this rank's rows are
+    reset (``torch.multinomial`` consumes the generator by row count, so
+    the count must be global everywhere)."""
+    draws = sample_reset_draws(n, generator, assets, cfg, case)
+    return reset_from_draws(cfg, assets, shard_carry(draws, mesh))
 
 
 def step(cfg: EnvConfig, assets: Assets, state: EnvState,

@@ -100,6 +100,21 @@ class Assets:
         return self.maps.sdf.device
 
 
+_SUITE_DTYPES = dict(
+    case_town=torch.int32, waypoints=torch.float32, waypoint_mask=torch.bool,
+    n_waypoints=torch.int32, scen_states=torch.float32,
+    scen_attrs=torch.float32, scen_mask=torch.bool,
+    replay_states=torch.float32, replay_mask=torch.bool)
+
+
+def suite_from_numpy(s, device) -> SuiteArrays:
+    """``SuiteArrays`` on ``device`` from a mapping of numpy arrays (an npz
+    bundle, or what ``maps/compile.py:compile_suite`` returns)."""
+    return SuiteArrays(**{
+        k: torch.as_tensor(np.asarray(s[k]), device=device).to(dtype)
+        for k, dtype in _SUITE_DTYPES.items()})
+
+
 def _assets_dir() -> str:
     return torchdriveenv_tpu_torch._data_path[0]
 
@@ -137,17 +152,7 @@ def load_assets(suite: str = "train", device=None,
         light_mask=t(m["light_mask"], torch.bool),
         light_durations=t(m["light_durations"], torch.float32),
     )
-    suite_arrays = SuiteArrays(
-        case_town=t(s["case_town"], torch.int32),
-        waypoints=t(s["waypoints"], torch.float32),
-        waypoint_mask=t(s["waypoint_mask"], torch.bool),
-        n_waypoints=t(s["n_waypoints"], torch.int32),
-        scen_states=t(s["scen_states"], torch.float32),
-        scen_attrs=t(s["scen_attrs"], torch.float32),
-        scen_mask=t(s["scen_mask"], torch.bool),
-        replay_states=t(s["replay_states"], torch.float32),
-        replay_mask=t(s["replay_mask"], torch.bool),
-    )
+    suite_arrays = suite_from_numpy(s, dev)
     background = BackgroundArrays(
         bg_states=t(b["bg_states"], torch.float32),
         bg_attrs=t(b["bg_attrs"], torch.float32),

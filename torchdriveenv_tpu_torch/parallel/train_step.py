@@ -6,6 +6,11 @@ appends the transitions to the replay buffer, and then runs
 A2C): one call collects ``n_steps`` per env into time-major tensors and then
 runs the agent's whole update on them. All on one device, with no host read
 in between.
+
+Data parallel (``mesh``, ``parallel/mesh.py``): each rank steps its rows of
+the global env batch and keeps their replay ring; every draw is made at
+global width and the learners sum their gradients over the ranks, so W
+ranks take the train step of one process. ``num_envs`` stays global.
 """
 
 from __future__ import annotations
@@ -19,6 +24,12 @@ from torchdriveenv_tpu_torch.config import EnvConfig
 from torchdriveenv_tpu_torch.env.batched import make_env_fns
 from torchdriveenv_tpu_torch.maps.arrays import Assets, resolve_device
 from torchdriveenv_tpu_torch.models.policies import scale_action, unscale_action
+from torchdriveenv_tpu_torch.parallel.mesh import (
+    Mesh,
+    draw_env_rows,
+    global_mean,
+    replicate_,
+)
 from torchdriveenv_tpu_torch.rl import buffer as replay
 from torchdriveenv_tpu_torch.rl.ppo import bootstrap_truncated_rewards
 from torchdriveenv_tpu_torch.rl.rollout import RolloutState, init_stack, update_stack
@@ -30,14 +41,31 @@ def _check_device(assets: Assets, dev: torch.device) -> None:
                          f"on {dev}")
 
 
-def _first_reset(env_cfg: EnvConfig, assets: Assets, num_envs: int, seed: int):
-    """A generator on the assets' device seeded with ``seed``, and the first
-    reset of every env drawn from it -> (generator, env_state, obs)."""
+def _check_mesh(mesh: Optional[Mesh], num_envs: int) -> int:
+    """The number of envs this process steps."""
+    if mesh is None:
+        return num_envs
+    if mesh.num_envs != num_envs:
+        raise ValueError(f"a mesh of {mesh.num_envs} envs for a train step "
+                         f"of {num_envs}")
+    return mesh.local_envs
+
+
+def _first_reset(env_cfg: EnvConfig, assets: Assets, num_envs: int, seed: int,
+                 mesh: Optional[Mesh]):
+    """A generator on the assets' device seeded with ``seed`` (the same on
+    every rank), and the first reset of every env drawn from it ->
+    (generator, env_state, obs) of this process's envs."""
     generator = torch.Generator(device=assets.device)
     generator.manual_seed(seed)
-    reset_fn, _ = make_env_fns(env_cfg, assets, render=True)
+    reset_fn, _ = make_env_fns(env_cfg, assets, render=True, mesh=mesh)
     env_state, obs = reset_fn(generator, num_envs)
     return generator, env_state, obs
+
+
+def _noise(n: int, g: torch.Generator, device) -> torch.Tensor:
+    """The policy's standard-normal action noise for ``n`` envs."""
+    return torch.randn((n, 2), generator=g, device=device)
 
 
 @dataclasses.dataclass
@@ -55,7 +83,8 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                              updates_per_iter: int = 1,
                              demo_fn: Optional[Callable] = None,
                              demo_steps: int = 0, demo_envs: int = 0,
-                             device=None) -> Tuple[Callable, Callable]:
+                             device=None, mesh: Optional[Mesh] = None
+                             ) -> Tuple[Callable, Callable]:
     """Build (init_fn, train_step_fn) for an off-policy agent (SAC, TD3).
 
     init_fn(assets, seed) -> OffPolicyCarry
@@ -76,18 +105,23 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
     first K envs scripted for the whole run.
 
     ``device=None`` means the GPU; the assets must be on the same device.
+    ``mesh``: this rank's rows of a data-parallel run; the carry holds its
+    envs and its part of the replay ring (``buffer_capacity`` cells for each
+    of them), the agent is replicated.
     """
     dev = resolve_device(device)
     fs = env_cfg.frame_stack
     res = env_cfg.simulator.renderer.obs_res
+    local = _check_mesh(mesh, num_envs)
 
     def init_fn(assets: Assets, seed: int = 0) -> OffPolicyCarry:
         _check_device(assets, dev)
         generator, env_state, obs = _first_reset(env_cfg, assets, num_envs,
-                                                 seed)
-        buf = replay.create(num_envs, buffer_capacity, (3, res, res),
+                                                 seed, mesh)
+        buf = replay.create(local, buffer_capacity, (3, res, res),
                             device=assets.device)
-        agent_state = agent.init(seed=seed, obs_res=res, device=assets.device)
+        agent_state = replicate_(agent.init(seed=seed, obs_res=res,
+                                            device=assets.device), mesh)
         return OffPolicyCarry(
             rollout=RolloutState(env_state, init_stack(obs, fs)),
             buffer=buf, agent_state=agent_state, generator=generator,
@@ -97,13 +131,14 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                       ) -> Tuple[OffPolicyCarry, Dict[str, torch.Tensor]]:
         _check_device(assets, dev)
         _, step_fn = make_env_fns(env_cfg, assets, render=True,
-                                  with_final_obs=True)
-        g = carry.generator
+                                  with_final_obs=True, mesh=mesh)
+        g, d = carry.generator, assets.device
         warmup = carry.env_steps < agent.cfg.learning_starts
         demo_mask = None
         if demo_fn is not None:
             demo_phase = carry.env_steps < demo_steps
-            demo_mask = (torch.arange(num_envs, device=assets.device)
+            lo = mesh.lo if mesh is not None else 0
+            demo_mask = (torch.arange(lo, lo + local, device=d)
                          < (num_envs if demo_phase else demo_envs))
 
         rs, buf = carry.rollout, carry.buffer
@@ -111,10 +146,14 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
         for _ in range(steps_per_iter):
             with torch.no_grad():
                 if warmup:
-                    a = torch.rand((num_envs, 2), generator=g,
-                                   device=assets.device) * 2.0 - 1.0
+                    a = draw_env_rows(
+                        lambda n: torch.rand((n, 2), generator=g, device=d),
+                        local, mesh) * 2.0 - 1.0
                 else:
-                    a = agent.select_action(rs.obs_stack, g)
+                    a = agent.select_action(
+                        rs.obs_stack, g,
+                        noise=draw_env_rows(lambda n: _noise(n, g, d), local,
+                                            mesh))
                 if demo_fn is not None:
                     a_demo = torch.clamp(
                         unscale_action(demo_fn(rs.env_state)), -1.0, 1.0)
@@ -130,17 +169,18 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
             rewards.append(out.reward)
 
         if warmup:
-            zero = torch.zeros((), device=assets.device)
+            zero = torch.zeros((), device=d)
             metrics = {k: zero for k in agent.metric_names}
         else:
             rows = []
             for _ in range(updates_per_iter):
                 batch = replay.sample(buf, agent.cfg.batch_size, fs,
-                                      generator=g)
-                rows.append(agent.update(batch, generator=g))
+                                      generator=g, mesh=mesh)
+                rows.append(agent.update(batch, generator=g, mesh=mesh))
             metrics = {k: torch.stack([r[k] for r in rows]).mean()
                        for k in rows[0]}
-        metrics["mean_step_reward"] = torch.stack(rewards).mean()
+        metrics["mean_step_reward"] = global_mean(
+            torch.stack(rewards), steps_per_iter * num_envs, mesh)
 
         new_carry = OffPolicyCarry(
             rollout=rs, buffer=buf, agent_state=agent.state, generator=g,
@@ -160,7 +200,8 @@ class OnPolicyCarry:
 
 def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                             n_steps: Optional[int] = None,
-                            device=None) -> Tuple[Callable, Callable]:
+                            device=None, mesh: Optional[Mesh] = None
+                            ) -> Tuple[Callable, Callable]:
     """Build (init_fn, train_step_fn) for an on-policy agent (PPO, A2C).
 
     init_fn(assets, seed) -> OnPolicyCarry
@@ -177,17 +218,21 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
     reward, before the bootstrap.
 
     ``device=None`` means the GPU; the assets must be on the same device.
+    ``mesh``: this rank's rows of a data-parallel run; the rollout holds its
+    envs, the agent is replicated.
     """
     dev = resolve_device(device)
     fs = env_cfg.frame_stack
     res = env_cfg.simulator.renderer.obs_res
     n_steps = n_steps or agent.cfg.n_steps
+    local = _check_mesh(mesh, num_envs)
 
     def init_fn(assets: Assets, seed: int = 0) -> OnPolicyCarry:
         _check_device(assets, dev)
         generator, env_state, obs = _first_reset(env_cfg, assets, num_envs,
-                                                 seed)
-        agent_state = agent.init(seed=seed, obs_res=res, device=assets.device)
+                                                 seed, mesh)
+        agent_state = replicate_(agent.init(seed=seed, obs_res=res,
+                                            device=assets.device), mesh)
         return OnPolicyCarry(
             rollout=RolloutState(env_state, init_stack(obs, fs)),
             agent_state=agent_state, generator=generator, env_steps=0)
@@ -196,12 +241,12 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                       ) -> Tuple[OnPolicyCarry, Dict[str, torch.Tensor]]:
         _check_device(assets, dev)
         _, step_fn = make_env_fns(env_cfg, assets, render=True,
-                                  with_final_obs=True)
+                                  with_final_obs=True, mesh=mesh)
         g, rs = carry.generator, carry.rollout
         d = assets.device
 
         def rows(*shape, dtype=torch.float32):
-            return torch.empty((n_steps, num_envs) + shape, dtype=dtype,
+            return torch.empty((n_steps, local) + shape, dtype=dtype,
                                device=d)
 
         rollout = dict(obs=rows(*rs.obs_stack.shape[1:], dtype=torch.uint8),
@@ -210,7 +255,10 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                        raw_reward=rows())
         with torch.no_grad():
             for t in range(n_steps):
-                a, logp, value = agent.select_action(rs.obs_stack, g)
+                a, logp, value = agent.select_action(
+                    rs.obs_stack, g,
+                    noise=draw_env_rows(lambda n: _noise(n, g, d), local,
+                                        mesh))
                 out = step_fn(rs.env_state, scale_action(a), g)
                 done = out.terminated | out.truncated
                 # terminal frame stack: final_obs shifted in WITHOUT the
@@ -230,8 +278,10 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                                   update_stack(rs.obs_stack, out.obs, done))
             last_value = agent.value(rs.obs_stack)
 
-        metrics = dict(agent.update(rollout, last_value, generator=g))
-        metrics["mean_step_reward"] = rollout["raw_reward"].mean()
+        metrics = dict(agent.update(rollout, last_value, generator=g,
+                                    mesh=mesh))
+        metrics["mean_step_reward"] = global_mean(
+            rollout["raw_reward"], n_steps * num_envs, mesh)
         new_carry = OnPolicyCarry(
             rollout=rs, agent_state=agent.state, generator=g,
             env_steps=carry.env_steps + n_steps * num_envs)

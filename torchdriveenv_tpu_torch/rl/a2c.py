@@ -19,6 +19,11 @@ from torchdriveenv_tpu_torch.models.policies import (
     gaussian_entropy,
     gaussian_log_prob,
 )
+from torchdriveenv_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    mean_over,
+)
 from torchdriveenv_tpu_torch.rl.ppo import ActorCriticAgent, compute_gae
 
 
@@ -49,11 +54,14 @@ class A2C(ActorCriticAgent):
 
     def update(self, rollout: Dict[str, torch.Tensor],
                last_value: torch.Tensor,
-               generator: Optional[torch.Generator] = None
-               ) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator] = None,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """One gradient step on the whole time-major rollout, in place.
         Nothing is drawn: ``generator`` is part of the learners' common
-        signature only. Advantages and returns are constants of the loss."""
+        signature only. Advantages and returns are constants of the loss.
+        With a ``mesh`` the rollout holds this rank's envs: the
+        losses are this rank's sums over the global ``T * E``, and the
+        gradients and metrics are summed over the ranks."""
         del generator
         cfg, st = self.cfg, self.state
         with torch.no_grad():
@@ -61,14 +69,16 @@ class A2C(ActorCriticAgent):
                                         rollout["done"], last_value,
                                         cfg.gamma, cfg.gae_lambda)
         n = advs.numel()
+        n_all = n if mesh is None else advs.shape[0] * mesh.num_envs
         obs = rollout["obs"].reshape((n,) + rollout["obs"].shape[2:])
         mu, log_std, value = st.net(obs)
         logp = gaussian_log_prob(mu, log_std, rollout["action"].reshape(n, -1))
-        pg_loss = -(advs.reshape(n) * logp).mean()
-        v_loss = ((value - returns.reshape(n)) ** 2).mean()
-        ent = gaussian_entropy(log_std).mean()
+        pg_loss = -mean_over(advs.reshape(n) * logp, n_all, mesh)
+        v_loss = mean_over((value - returns.reshape(n)) ** 2, n_all, mesh)
+        ent = mean_over(gaussian_entropy(log_std), n_all, mesh)
         loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
-        self._step(loss)
+        self._step(loss, mesh)
         st.step += 1
-        return dict(loss=loss.detach(), pg_loss=pg_loss.detach(),
-                    v_loss=v_loss.detach(), entropy=ent.detach())
+        metrics = torch.stack([loss, pg_loss, v_loss, ent]).detach()
+        all_reduce_([metrics], mesh)
+        return dict(zip(self.metric_names, metrics.unbind(0)))

@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from torchdriveenv_tpu_torch.maps.arrays import resolve_device
+from torchdriveenv_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -144,25 +145,35 @@ def _stack_at(buf: ReplayBuffer, env_idx: torch.Tensor, idx: torch.Tensor,
 
 
 def sample(buf: ReplayBuffer, batch_size: int, frame_stack: int = 3,
-           generator: Optional[torch.Generator] = None, indices=None):
+           generator: Optional[torch.Generator] = None, indices=None,
+           mesh: Optional[Mesh] = None):
     """Uniform sample of transitions with stacked obs / next_obs.
 
     Returns dict(obs (B, S*C, H, W) uint8, action, reward, next_obs,
-    discount_mask, done, is_demo):
+    discount_mask, done, is_demo, pos):
       - terminated cells: discount 0 (next_obs content is irrelevant);
       - truncated cells: discount 1 and next_obs is the episode's true final
         observation (the side-ring frame appended to the cell's own stack);
-      - ordinary cells: discount 1, next_obs from the following cell.
+      - ordinary cells: discount 1, next_obs from the following cell;
+      - ``pos`` (int64): each row's position in the global batch, which
+        indexes the learners' noise (``arange(B)`` in one process).
 
     ``indices=(env_idx, off)``: the two (B,) integer draws, ``env_idx`` in
     [0, E) and ``off`` in [0, max(filled - 1, 1)); two ``torch.randint``
     draws from ``generator`` (on the buffer's device) when absent.
+
+    With a ``mesh`` the ring holds this rank's envs: ``env_idx`` is drawn
+    over the GLOBAL env count (and ``indices`` are global), and only the
+    transitions of envs in ``[lo, hi)`` are gathered. How many those are
+    depends on the draw, so picking them reads the device from the host
+    (one synchronizing ``nonzero`` per sample).
     """
     e, n = buf.frames.shape[:2]
     c = buf.frames.shape[2]
     dev = buf.frames.device
     if indices is None:
-        env_idx = torch.randint(0, e, (batch_size,), generator=generator,
+        env_idx = torch.randint(0, e if mesh is None else mesh.num_envs,
+                                (batch_size,), generator=generator,
                                 device=dev)
         # valid cells: written, and not the most recent one (its next frame
         # may be unwritten). The bound lives on the device, so the draw is
@@ -173,6 +184,11 @@ def sample(buf: ReplayBuffer, batch_size: int, frame_stack: int = 3,
                             device=dev) % upper
     else:
         env_idx, off = (torch.as_tensor(x, device=dev).long() for x in indices)
+    if mesh is None:
+        pos = torch.arange(env_idx.shape[0], device=dev)
+    else:
+        pos = torch.nonzero((env_idx >= mesh.lo) & (env_idx < mesh.hi))[:, 0]
+        env_idx, off = env_idx[pos] - mesh.lo, off[pos]
     # sample backwards from the last complete cell
     idx = torch.remainder(buf.pos.long() - 2 - off, n)
 
@@ -196,4 +212,5 @@ def sample(buf: ReplayBuffer, batch_size: int, frame_stack: int = 3,
         discount_mask=1.0 - terminal.to(torch.float32),
         done=done,
         is_demo=buf.is_demo[env_idx, idx],
+        pos=pos,
     )

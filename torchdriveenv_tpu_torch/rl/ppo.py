@@ -23,6 +23,11 @@ from torchdriveenv_tpu_torch.models.policies import (
     gaussian_entropy,
     gaussian_log_prob,
 )
+from torchdriveenv_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    mean_over,
+)
 from torchdriveenv_tpu_torch.rl.optim import (
     adam_export,
     adam_load,
@@ -169,11 +174,14 @@ class ActorCriticAgent:
 
     # -- learning ---------------------------------------------------------
 
-    def _step(self, loss: torch.Tensor) -> None:
-        """Gradient of ``loss``, optax's global-norm clip, one Adam step."""
+    def _step(self, loss: torch.Tensor, mesh: Optional[Mesh] = None) -> None:
+        """Gradient of ``loss``, summed over the ranks of a ``mesh``,
+        optax's global-norm clip (of the global gradient, as optax clips
+        under GSPMD), one Adam step."""
         st = self.state
         params = list(st.net.parameters())
         grads = list(torch.autograd.grad(loss, params))
+        all_reduce_(grads, mesh)
         clip_by_global_norm_(grads, self.cfg.max_grad_norm)
         apply_grads(st.opt, params, grads)
 
@@ -189,8 +197,8 @@ class PPO(ActorCriticAgent):
     def update(self, rollout: Dict[str, torch.Tensor],
                last_value: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               perms: Optional[torch.Tensor] = None
-               ) -> Dict[str, torch.Tensor]:
+               perms: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """One full PPO update (epochs x minibatches) on a time-major
         rollout: obs (T, E, C, H, W) uint8, action, log_prob, value, reward
         (truncations bootstrapped), done. In place.
@@ -200,21 +208,31 @@ class PPO(ActorCriticAgent):
         (on the rollout's device) when absent. Each epoch walks its
         permutation in ``T * E // batch_size`` minibatches and drops the
         remainder. Returns the four metrics, means over every minibatch, as
-        0-d tensors."""
+        0-d tensors.
+
+        With a ``mesh`` the rollout holds this rank's envs: the
+        permutations run over the GLOBAL ``T * E`` on every rank, each
+        minibatch takes the rows this rank owns (a synchronizing
+        ``nonzero``: their number depends on the permutation), the
+        advantages are normalized with all-reduced sums, the losses are this
+        rank's sums over the minibatch size and the gradients are summed
+        before the clip."""
         cfg, st = self.cfg, self.state
         with torch.no_grad():
             advs, returns = compute_gae(rollout["reward"], rollout["value"],
                                         rollout["done"], last_value,
                                         cfg.gamma, cfg.gae_lambda)
         t, e = advs.shape
-        n = t * e
-        if n < cfg.batch_size:
-            raise ValueError(f"a rollout of {t} x {e} = {n} transitions "
-                             f"cannot fill a minibatch of {cfg.batch_size}")
-        obs = rollout["obs"].reshape((n,) + rollout["obs"].shape[2:])
-        action = rollout["action"].reshape(n, -1)
-        old_logp = rollout["log_prob"].reshape(n)
-        advs, returns = advs.reshape(n), returns.reshape(n)
+        e_all = e if mesh is None else mesh.num_envs
+        n = t * e_all
+        m = cfg.batch_size
+        if n < m:
+            raise ValueError(f"a rollout of {t} x {e_all} = {n} transitions "
+                             f"cannot fill a minibatch of {m}")
+        obs = rollout["obs"].reshape((t * e,) + rollout["obs"].shape[2:])
+        action = rollout["action"].reshape(t * e, -1)
+        old_logp = rollout["log_prob"].reshape(t * e)
+        advs, returns = advs.reshape(t * e), returns.reshape(t * e)
         if perms is None:
             perms = torch.stack([
                 torch.randperm(n, generator=generator, device=advs.device)
@@ -222,22 +240,44 @@ class PPO(ActorCriticAgent):
 
         rows = []
         for epoch in range(cfg.n_epochs):
-            for mb in range(n // cfg.batch_size):
-                idx = perms[epoch, mb * cfg.batch_size:
-                            (mb + 1) * cfg.batch_size]
+            for mb in range(n // m):
+                idx = perms[epoch, mb * m:(mb + 1) * m]
+                if mesh is not None:
+                    idx = _owned_rows(idx, mesh, e)
                 mu, log_std, value = st.net(obs[idx])
                 logp = gaussian_log_prob(mu, log_std, action[idx])
                 ratio = torch.exp(logp - old_logp[idx])
-                adv = advs[idx]
-                adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+                adv = _normalized(advs[idx], m, mesh)
                 clipped = torch.clamp(ratio, 1 - cfg.clip_range,
                                       1 + cfg.clip_range) * adv
-                pg_loss = -torch.minimum(ratio * adv, clipped).mean()
-                v_loss = ((value - returns[idx]) ** 2).mean()
-                ent = gaussian_entropy(log_std).mean()
+                pg_loss = -mean_over(torch.minimum(ratio * adv, clipped), m,
+                                     mesh)
+                v_loss = mean_over((value - returns[idx]) ** 2, m, mesh)
+                ent = mean_over(gaussian_entropy(log_std), m, mesh)
                 loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
-                self._step(loss)
+                self._step(loss, mesh)
                 rows.append(torch.stack([loss, pg_loss, v_loss, ent]).detach())
         st.step += 1
         means = torch.stack(rows).mean(0)
+        all_reduce_([means], mesh)
         return dict(zip(self.metric_names, means.unbind(0)))
+
+
+def _owned_rows(idx: torch.Tensor, mesh: Mesh, e: int) -> torch.Tensor:
+    """The local flat rows (``t * e + env - lo``) of the global flat
+    indices ``idx`` (``t * num_envs + env``) whose env this rank owns."""
+    t_, env = idx // mesh.num_envs, idx % mesh.num_envs
+    own = torch.nonzero((env >= mesh.lo) & (env < mesh.hi))[:, 0]
+    return t_[own] * e + env[own] - mesh.lo
+
+
+def _normalized(adv: torch.Tensor, m: int, mesh: Optional[Mesh]
+                ) -> torch.Tensor:
+    """Advantages normalized over the minibatch of ``m`` rows (population
+    std), from sums over the rows of every rank (two all-reduces)."""
+    mean = adv.sum().reshape(1)
+    all_reduce_([mean], mesh)
+    mean = mean / m
+    var = ((adv - mean) ** 2).sum().reshape(1)
+    all_reduce_([var], mesh)
+    return (adv - mean) / (torch.sqrt(var / m) + 1e-8)

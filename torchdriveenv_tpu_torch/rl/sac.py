@@ -25,6 +25,11 @@ from torchdriveenv_tpu_torch.models.policies import (
     SquashedGaussianActor,
     sample_squashed,
 )
+from torchdriveenv_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    mean_over,
+)
 from torchdriveenv_tpu_torch.rl.optim import adam_export, adam_load, apply_grads
 
 
@@ -167,15 +172,28 @@ class SAC:
 
     def update(self, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-               ) -> Dict[str, torch.Tensor]:
+               noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """One gradient update on ``batch`` (as ``buffer.sample`` returns
         it), in place. ``noise=(n_next, n_pi)``: the standard-normal draws
-        of the two ``sample_squashed`` calls, each (B, A); drawn from
-        ``generator`` in that order when absent. Returns the seven metrics
-        as 0-d tensors on the agent's device."""
+        of the two ``sample_squashed`` calls, each (B, A) over the global
+        batch; drawn from ``generator`` in that order when absent, and
+        indexed by ``batch["pos"]`` where the batch has it. Returns the
+        seven metrics as 0-d tensors on the agent's device.
+
+        With a ``mesh`` the batch holds this rank's rows of a global batch
+        of ``batch_size``: the losses are this rank's sums over the global
+        size, and the gradients, the mean log-prob and the metrics are
+        summed over the ranks."""
         cfg, st = self.cfg, self.state
-        n_next, n_pi = noise if noise is not None else (None, None)
+        b = batch["reward"].shape[0] if mesh is None else cfg.batch_size
+        if noise is None:
+            shape = (b,) + batch["action"].shape[1:]
+            noise = [torch.randn(shape, generator=generator,
+                                 device=batch["action"].device)
+                     for _ in range(2)]
+        pos = batch.get("pos")
+        n_next, n_pi = noise if pos is None else (x[pos] for x in noise)
         fixed = cfg.fixed_alpha is not None
         # torch.full fills on the device; torch.tensor would upload, which
         # synchronizes the host with the device at every update
@@ -196,7 +214,8 @@ class SAC:
                         + cfg.gamma * batch["discount_mask"] * target_v)
 
         q1, q2 = st.critic(obs, batch["action"])
-        critic_loss = ((q1 - target_q) ** 2 + (q2 - target_q) ** 2).mean()
+        critic_loss = mean_over((q1 - target_q) ** 2 + (q2 - target_q) ** 2,
+                                b, mesh)
         critic_grads = torch.autograd.grad(critic_loss, critic_params)
 
         # actor loss through the critic as it was before this update; the
@@ -204,17 +223,26 @@ class SAC:
         mu, log_std = st.actor(obs)
         a, logp = sample_squashed(mu, log_std, generator, n_pi)
         q1_pi, q2_pi = st.critic(obs, a)
-        actor_loss = (alpha * logp - torch.minimum(q1_pi, q2_pi)).mean()
+        actor_loss = mean_over(alpha * logp - torch.minimum(q1_pi, q2_pi),
+                               b, mesh)
         if cfg.bc_coef:
             demo = batch["is_demo"].to(torch.float32)
             # targets clipped inside the open interval: the scripted driver
             # saturates accel at exactly +-1, and mse(tanh(mu), +-1) drives
             # mu to infinity
             tgt = torch.clamp(batch["action"], -0.98, 0.98)
-            bc = (demo * ((torch.tanh(mu) - tgt) ** 2).sum(-1)).mean()
+            bc = mean_over(demo * ((torch.tanh(mu) - tgt) ** 2).sum(-1), b,
+                           mesh)
             actor_loss = actor_loss + cfg.bc_coef * bc
         actor_grads = torch.autograd.grad(actor_loss, actor_params)
-        logp_mean = logp.detach().mean()
+        logp_mean = mean_over(logp.detach(), b, mesh)
+        q_means = [mean_over(q1.detach(), b, mesh),
+                   mean_over(q2.detach(), b, mesh)]
+        critic_loss, actor_loss = critic_loss.detach(), actor_loss.detach()
+        if mesh is not None:    # one collective for all of it
+            sums = torch.stack([logp_mean, critic_loss, actor_loss] + q_means)
+            all_reduce_(list(critic_grads) + list(actor_grads) + [sums], mesh)
+            logp_mean, critic_loss, actor_loss, *q_means = sums.unbind(0)
 
         alpha_loss = alpha_loss_sb3(st.log_alpha, logp_mean,
                                     cfg.target_entropy)
@@ -239,8 +267,6 @@ class SAC:
                     st.log_alpha.copy_(kept)
         st.step += 1
 
-        return dict(critic_loss=critic_loss.detach(),
-                    actor_loss=actor_loss.detach(),
+        return dict(critic_loss=critic_loss, actor_loss=actor_loss,
                     alpha_loss=alpha_loss.detach(), alpha=alpha,
-                    q1=q1.detach().mean(), q2=q2.detach().mean(),
-                    entropy=-logp_mean)
+                    q1=q_means[0], q2=q_means[1], entropy=-logp_mean)

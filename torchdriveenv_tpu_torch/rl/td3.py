@@ -20,6 +20,11 @@ import torch
 
 from torchdriveenv_tpu_torch.maps.arrays import resolve_device
 from torchdriveenv_tpu_torch.models.policies import DeterministicActor, DoubleQCritic
+from torchdriveenv_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    mean_over,
+)
 from torchdriveenv_tpu_torch.rl.optim import adam_export, adam_load, apply_grads
 
 
@@ -143,23 +148,32 @@ class TD3:
 
     def update(self, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None
-               ) -> Dict[str, torch.Tensor]:
+               noise: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
         """One gradient update on ``batch`` (as ``buffer.sample`` returns
         it), in place. ``noise``: the standard-normal draw of the target
-        policy smoothing, shaped like ``batch["action"]``; drawn from
-        ``generator`` when absent. The actor and both targets move only on
+        policy smoothing, (B, A) over the global batch; drawn from
+        ``generator`` when absent, and indexed by ``batch["pos"]`` where the
+        batch has it. The actor and both targets move only on
         updates whose number (from 0) divides by ``policy_delay``;
         ``actor_loss`` reports 0 on the others. Returns the three metrics as
-        0-d tensors on the agent's device."""
+        0-d tensors on the agent's device.
+
+        With a ``mesh`` the batch holds this rank's rows of a global batch
+        of ``batch_size``: the losses are this rank's sums over the global
+        size, and the gradients and metrics are summed over the ranks."""
         cfg, st = self.cfg, self.state
         obs, action = batch["obs"], batch["action"]
         critic_params = list(st.critic.parameters())
+        b = action.shape[0] if mesh is None else cfg.batch_size
 
         with torch.no_grad():       # smoothed target action
             if noise is None:
-                noise = torch.randn(action.shape, generator=generator,
-                                    device=action.device, dtype=action.dtype)
+                noise = torch.randn((b,) + action.shape[1:],
+                                    generator=generator, device=action.device,
+                                    dtype=action.dtype)
+            if "pos" in batch:
+                noise = noise[batch["pos"]]
             noise = torch.clamp(cfg.target_noise * noise, -cfg.noise_clip,
                                 cfg.noise_clip)
             next_a = torch.clamp(st.target_actor(batch["next_obs"]) + noise,
@@ -169,9 +183,10 @@ class TD3:
                         * torch.minimum(tq1, tq2))
 
         q1, q2 = st.critic(obs, action)
-        critic_loss = ((q1 - target_q) ** 2 + (q2 - target_q) ** 2).mean()
-        apply_grads(st.critic_opt, critic_params,
-                    torch.autograd.grad(critic_loss, critic_params))
+        critic_loss = mean_over((q1 - target_q) ** 2 + (q2 - target_q) ** 2,
+                                b, mesh)
+        apply_grads(st.critic_opt, critic_params, all_reduce_(
+            torch.autograd.grad(critic_loss, critic_params), mesh))
 
         # delayed policy and target updates. ``step`` is a Python int, so
         # the test costs no host read.
@@ -179,9 +194,10 @@ class TD3:
             actor_params = list(st.actor.parameters())
             # through the critic as it is now, after its step; the gradient
             # is taken for the actor's parameters only
-            actor_loss = -st.critic(obs, st.actor(obs))[0].mean()
-            apply_grads(st.actor_opt, actor_params,
-                        torch.autograd.grad(actor_loss, actor_params))
+            actor_loss = -mean_over(st.critic(obs, st.actor(obs))[0], b,
+                                    mesh)
+            apply_grads(st.actor_opt, actor_params, all_reduce_(
+                torch.autograd.grad(actor_loss, actor_params), mesh))
             actor_loss = actor_loss.detach()
             with torch.no_grad():
                 _polyak_(list(st.target_actor.parameters()), actor_params,
@@ -192,5 +208,7 @@ class TD3:
             actor_loss = torch.zeros((), device=critic_loss.device)
         st.step += 1
 
-        return dict(critic_loss=critic_loss.detach(), actor_loss=actor_loss,
-                    q1=q1.detach().mean())
+        metrics = torch.stack([critic_loss.detach(), actor_loss,
+                               mean_over(q1.detach(), b, mesh)])
+        all_reduce_([metrics], mesh)
+        return dict(zip(self.metric_names, metrics.unbind(0)))

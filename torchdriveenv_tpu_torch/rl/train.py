@@ -21,7 +21,14 @@ builds the fused train step of the chosen algorithm, and runs:
     the two packages.
 
 The run is on one device: the GPU, or the one ``env.device`` names (``cpu``
-for a small run without a GPU).
+for a small run without a GPU). Launched by torchrun, it is data parallel
+(``parallel/mesh.py``): ``main`` joins the process group first, each rank
+steps its rows of ``parallel_env_num`` envs on its own device and keeps their
+part of the replay ring, the learners sum their gradients over the ranks,
+and rank 0 alone logs, evaluates, records video and writes checkpoints:
+
+    torchrun --nproc_per_node=N -m torchdriveenv_tpu_torch.rl.train \
+        --config_file path/to/config.yml
 """
 
 from __future__ import annotations
@@ -45,6 +52,15 @@ from torchdriveenv_tpu_torch.env.batched import make_env_fns
 from torchdriveenv_tpu_torch.env.core import EnvState
 from torchdriveenv_tpu_torch.maps.arrays import load_assets, resolve_device
 from torchdriveenv_tpu_torch.models.policies import scale_action
+from torchdriveenv_tpu_torch.parallel.mesh import (
+    Mesh,
+    agree,
+    fetch_to_host,
+    is_main,
+    make_mesh,
+    maybe_init_distributed,
+    shard_carry,
+)
 from torchdriveenv_tpu_torch.parallel.train_step import (
     make_offpolicy_train_fns,
     make_onpolicy_train_fns,
@@ -149,29 +165,50 @@ class MetricLogger:
             self._wandb.finish()
 
 
+class _NullLogger:
+    """The metrics sink of ranks other than 0: a data-parallel run must not
+    have every rank writing the same JSONL / TensorBoard / wandb streams."""
+
+    path = None
+
+    def log(self, step, metrics, prefix=""):
+        pass
+
+    def close(self):
+        pass
+
+
 def _fields(obj) -> Dict[str, Any]:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
-def carry_to_tree(carry, agent) -> Dict[str, Any]:
-    """The whole carry as plain containers of tensors and Python scalars."""
-    tree = {
-        "agent": agent.export_state(),
-        "env_state": _fields(carry.rollout.env_state),
-        "obs_stack": carry.rollout.obs_stack,
-        "env_steps": carry.env_steps,
-        "generator": carry.generator.get_state(),
-    }
+def carry_to_tree(carry, agent, mesh: Optional[Mesh] = None
+                  ) -> Dict[str, Any]:
+    """The whole carry as plain containers of tensors and Python scalars.
+    With a ``mesh`` the env states, stacks and replay ring of every
+    rank are gathered (a collective: call it on every rank) and the tree is
+    the one-process carry's, on the host."""
+    envs = {"env_state": _fields(carry.rollout.env_state),
+            "obs_stack": carry.rollout.obs_stack}
     if hasattr(carry, "buffer"):
-        tree["buffer"] = _fields(carry.buffer)
-    return tree
+        envs["buffer"] = _fields(carry.buffer)
+    if mesh is not None:
+        envs = fetch_to_host(envs, mesh)
+    return {"agent": agent.export_state(), **envs,
+            "env_steps": carry.env_steps,
+            "generator": carry.generator.get_state()}
 
 
-def load_carry(carry, agent, tree: Dict[str, Any]):
+def load_carry(carry, agent, tree: Dict[str, Any],
+               mesh: Optional[Mesh] = None):
     """Restore ``tree`` (as ``carry_to_tree`` made it) INTO the live carry:
     the agent's modules and optimizers are loaded in place, so the carry's
-    ``agent_state`` stays the object the train step updates."""
+    ``agent_state`` stays the object the train step updates. With a
+    ``mesh`` every rank reads the whole tree and keeps its envs' rows."""
     agent.load_state(tree["agent"])
+    tree = {k: (shard_carry(v, mesh) if k in ("env_state", "obs_stack",
+                                               "buffer") else v)
+            for k, v in tree.items()}
     carry.rollout = RolloutState(EnvState(**tree["env_state"]),
                                  tree["obs_stack"])
     carry.env_steps = int(tree["env_steps"])
@@ -188,16 +225,27 @@ def _save(ckpt_dir: str, name: str, tree) -> str:
     return path
 
 
-def save_checkpoint(ckpt_dir: str, name, carry, agent) -> str:
+def save_checkpoint(ckpt_dir: str, name, carry, agent,
+                    mesh: Optional[Mesh] = None) -> Optional[str]:
     """Full-carry checkpoint (agent, optimizers, buffer, env states,
     generator): rare. The replay buffer makes a full off-policy carry
-    gigabytes; the frequent artifact is the small ``save_model``."""
-    return _save(ckpt_dir, str(name), carry_to_tree(carry, agent))
+    gigabytes; the frequent artifact is the small ``save_model``. With a
+    ``mesh`` every rank takes part in the gather and rank 0 alone
+    writes (the others return None); the gather holds the global replay
+    ring on every rank's device one field at a time."""
+    tree = carry_to_tree(carry, agent, mesh)
+    if not is_main(mesh):
+        return None
+    return _save(ckpt_dir, str(name), tree)
 
 
-def save_model(ckpt_dir: str, step: int, agent) -> str:
+def save_model(ckpt_dir: str, step: int, agent,
+               mesh: Optional[Mesh] = None) -> Optional[str]:
     """Model-only save (a few MB): parameters, targets, optimizer moments
-    and step counts, as ``agent.export_state()`` gives them."""
+    and step counts, as ``agent.export_state()`` gives them. The agent is
+    replicated, so rank 0 alone writes it."""
+    if not is_main(mesh):
+        return None
     return _save(ckpt_dir, f"model_{step}", agent.export_state())
 
 
@@ -213,7 +261,8 @@ def train(cfg: RlTrainingConfig, resume_from: Optional[str] = None,
     """``resume_from`` restores a FULL carry (same env count and buffer
     shape); ``init_model`` warm-starts only the agent state from a
     model-only save: the cross-scale path (e.g. continue a 10-env policy at
-    128 envs, where the carry's shapes differ). Returns the final carry."""
+    128 envs, where the carry's shapes differ). Returns the final carry
+    (this rank's envs in a data-parallel run)."""
     algo = cfg.algorithm or BaselineAlgorithm.sac
     env_cfg = cfg.env
     device = resolve_device(env_cfg.device)
@@ -221,16 +270,27 @@ def train(cfg: RlTrainingConfig, resume_from: Optional[str] = None,
     fs = env_cfg.frame_stack
     agent, on_policy = build_agent(algo, obs_channels=3 * fs,
                                    algo_kwargs=cfg.algo_kwargs)
+    # data parallel over the process group: each rank steps its rows of the
+    # env batch, the learner is replicated, the gradients are summed. One
+    # process (or a one-rank group) -> no mesh, and no collective.
+    mesh = make_mesh(num_envs)
+    main = is_main(mesh)
+    if mesh is not None:
+        print(f"sharded over {mesh.world} ranks: envs [{mesh.lo}, "
+              f"{mesh.hi}) of {num_envs} on rank {mesh.rank}", flush=True)
 
     run_name = f"{algo.value}-{int(time.time())}"
-    logger = MetricLogger(cfg.log_dir, run_name,
-                          wandb_config=_flatten_cfg(cfg), project=cfg.project)
+    if main:
+        logger = MetricLogger(cfg.log_dir, run_name,
+                              wandb_config=_flatten_cfg(cfg),
+                              project=cfg.project)
+    else:
+        logger = _NullLogger()
     train_assets = load_assets("train", device=device)
-    val_assets = load_assets("val", device=device)
 
     if on_policy:
         init_fn, train_step = make_onpolicy_train_fns(
-            env_cfg, agent, num_envs, device=device)
+            env_cfg, agent, num_envs, device=device, mesh=mesh)
         steps_per_iter = agent.cfg.n_steps * num_envs
     else:
         demo_fn = None
@@ -243,17 +303,19 @@ def train(cfg: RlTrainingConfig, resume_from: Optional[str] = None,
             steps_per_iter=cfg.offpolicy_steps_per_iter,
             updates_per_iter=cfg.offpolicy_updates_per_iter,
             demo_fn=demo_fn, demo_steps=cfg.demo_warmup_steps,
-            demo_envs=cfg.demo_envs, device=device)
+            demo_envs=cfg.demo_envs, device=device, mesh=mesh)
         steps_per_iter = cfg.offpolicy_steps_per_iter * num_envs
 
     carry = init_fn(train_assets,
                     env_cfg.seed if env_cfg.seed is not None else 0)
     if resume_from:
-        carry = load_carry(carry, agent, restore_checkpoint(resume_from, device))
+        carry = load_carry(carry, agent, restore_checkpoint(resume_from, device),
+                           mesh)
     elif init_model:
         agent.load_state(restore_checkpoint(init_model, device))
 
-    # --- evaluators; `deterministic` comes from the callback's config
+    # --- evaluators (rank 0 alone); `deterministic` comes from the
+    # callback's config
     eval_gen = torch.Generator(device=device).manual_seed(10_000)
 
     def act(stack, deterministic):
@@ -276,17 +338,21 @@ def train(cfg: RlTrainingConfig, resume_from: Optional[str] = None,
                             cases=cases, n_cases=n_cases)
         return lambda: ev(eval_gen, n_episodes)
 
-    eval_val = make_eval(val_assets,
-                         max(cfg.eval_val_callback.eval_n_episodes, 1),
-                         cfg.eval_val_callback.deterministic, per_case=True)
-    eval_train = make_eval(train_assets,
-                           max(cfg.eval_train_callback.eval_n_episodes, 1),
-                           cfg.eval_train_callback.deterministic)
+    eval_val = eval_train = None
+    if main:
+        val_assets = load_assets("val", device=device)
+        eval_val = make_eval(val_assets,
+                             max(cfg.eval_val_callback.eval_n_episodes, 1),
+                             cfg.eval_val_callback.deterministic,
+                             per_case=True)
+        eval_train = make_eval(train_assets,
+                               max(cfg.eval_train_callback.eval_n_episodes, 1),
+                               cfg.eval_train_callback.deterministic)
 
     # --- eval video recorder: one validation episode, deterministic
     video_dir = os.path.join(cfg.log_dir, run_name + "_videos")
     record_video = None
-    if cfg.eval_val_callback.record:
+    if main and cfg.eval_val_callback.record:
         reset_v, step_v = make_env_fns(env_cfg, val_assets, render=True)
 
         @torch.no_grad()
@@ -326,7 +392,9 @@ def train(cfg: RlTrainingConfig, resume_from: Optional[str] = None,
 
     pending_log = None    # (step, device metrics) deferred one iteration
     while env_steps < total:
-        if max_wall_s is not None and time.time() - t_start > max_wall_s:
+        # rank 0's clock decides for every rank
+        if max_wall_s is not None and agree(
+                time.time() - t_start > max_wall_s, mesh):
             print("wall-clock budget reached", flush=True)
             break
         carry, metrics = train_step(train_assets, carry)
@@ -345,25 +413,26 @@ def train(cfg: RlTrainingConfig, resume_from: Optional[str] = None,
 
         if env_steps >= next_eval:
             next_eval = env_steps + eval_every
-            logger.log(env_steps, eval_val(), prefix="eval/")
-            logger.log(env_steps, eval_train(), prefix="eval_train/")
+            if main:
+                logger.log(env_steps, eval_val(), prefix="eval/")
+                logger.log(env_steps, eval_train(), prefix="eval_train/")
         if record_video is not None and env_steps >= next_video:
             next_video = env_steps + video_every
             record_video(env_steps)
         if env_steps >= next_model:
             next_model = env_steps + model_save_every
             # named per-step model saves (a few MB each): every save is kept
-            save_model(ckpt_dir, env_steps, agent)
+            save_model(ckpt_dir, env_steps, agent, mesh)
         if env_steps >= next_snapshot:
             next_snapshot = env_steps + snapshot_every
-            save_model(ckpt_dir, env_steps, agent)
-            save_checkpoint(ckpt_dir, "full_latest", carry, agent)
+            save_model(ckpt_dir, env_steps, agent, mesh)
+            save_checkpoint(ckpt_dir, "full_latest", carry, agent, mesh)
 
     if pending_log is not None:
         logger.log(*pending_log, prefix="train/")
-    save_model(ckpt_dir, env_steps, agent)
+    save_model(ckpt_dir, env_steps, agent, mesh)
     if cfg.full_snapshot_every >= 0:
-        save_checkpoint(ckpt_dir, "full_latest", carry, agent)
+        save_checkpoint(ckpt_dir, "full_latest", carry, agent, mesh)
     logger.close()
     return carry
 
@@ -380,6 +449,8 @@ def main(argv=None):
                     "(cross-env-count, unlike --resume_from)")
     ap.add_argument("--max_wall_s", type=float, default=None)
     args = ap.parse_args(argv)
+    # first: join the process group a launcher (torchrun, SLURM) set up
+    maybe_init_distributed()
 
     if args.config_file:
         cfg = load_rl_training_config(args.config_file)
