@@ -66,7 +66,23 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              (rollout / update split at the first agent.update) and must
              launch the rasterizer twice per env step; one PPO train step
              must make no synchronizing call.
-  8. multi   data parallelism over torch.distributed, its ranks run as
+  8. tools   the user workflow around training, in the deliverable's order
+             (TRAINING.md:226-231). tools/bc_pretrain at the deliverable's
+             width: 128 envs x 600 scripted steps = 76,800 frame stacks
+             (2.83 GB) kept on the card, one rasterizer launch per step;
+             3000 BC steps of 512 with no synchronizing call in a step and
+             a falling action-MSE; the warm start written. rl.train.train
+             of artifacts/sac_stage1_run.yml with init_model = that file for
+             2 train steps (a model_* after each): the starting actor is
+             BC's. tools/eval_checkpoints over BC and those model_* files,
+             25 validation episodes each. tools/distill_npc at batch 256 for
+             1500 steps, loaded back equal, then 4 policy-mode BatchedEnv
+             steps driven by it. tools/diagnose_val: the six probes (sac =
+             the BC checkpoint) on the 5 validation cases, 16 episodes of 50
+             steps (cut from the 200-step horizon). tools/audit_map_fidelity
+             on the card, its counts equal to the CPU's. tools/profile_learner
+             at batches 256 and 512 and tools/profile_step at 4096 envs.
+  9. multi   data parallelism over torch.distributed, its ranks run as
              subprocesses of this script (--multi-worker), each with a
              timeout. World 1 under nccl (torchrun-style variables,
              WORLD_SIZE=1): two train steps of the stage-1 SAC recipe shrunk
@@ -98,6 +114,7 @@ import importlib
 import json
 import math
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -524,13 +541,18 @@ def learner_phase(assets, env, state, act, card) -> dict:
 def synchronizing_calls(fn):
     """fn() under ``torch.cuda.set_sync_debug_mode("warn")`` -> (its result,
     {"file:line": count} of the calls from this package's code that
-    synchronized the host with the device)."""
+    synchronized the host with the device). Only frames below this
+    function's own count, so a caller inside the package (a probe that
+    ``main`` calls) is not taken for the mode's own notice."""
     syncs = []
 
     def note(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" in str(message).lower():
+            stack = traceback.extract_stack()
+            here = max(i for i, f in enumerate(stack)
+                       if f.name == "synchronizing_calls")
             inside = [f"{os.path.basename(f.filename)}:{f.lineno}"
-                      for f in traceback.extract_stack()
+                      for f in stack[here + 1:]
                       if "torchdriveenv_tpu_torch" in f.filename]
             if inside:          # not the mode's own notice
                 syncs.append(inside[-1])
@@ -829,10 +851,11 @@ def probed_train(train_mod, rc):
     ``agent.update``, and the rasterizer's launches per call. Nothing
     synchronizes inside the run; the events are read afterwards. Yields a
     namespace with ``rows`` [(start, first update, end, launches)], the
-    plain ``train_fn``, the ``agent``, the ``assets`` and the agent's state
-    right after ``init_fn``."""
+    plain ``train_fn``, the ``agent``, the ``assets``, the agent's state
+    right after ``init_fn`` and at the start of the first train step."""
     probe = types.SimpleNamespace(rows=[], train_fn=None, agent=None,
-                                  assets=None, initial=None, mark=None)
+                                  assets=None, initial=None, first=None,
+                                  mark=None)
     names = ("make_onpolicy_train_fns", "make_offpolicy_train_fns")
     plain = {n: getattr(train_mod, n) for n in names}
 
@@ -857,6 +880,8 @@ def probed_train(train_mod, rc):
                 return carry
 
             def timed(assets, carry):
+                if probe.first is None:
+                    probe.first = agent.export_state()
                 probe.mark = None
                 n0 = rc.render_obs_cuda.launches
                 e0 = event()
@@ -1188,6 +1213,376 @@ def train_phase(card, have) -> dict:
             rasterizer_launches_per_train_step=2 * spi,
             npc_hidden_mean_abs=float(hidden.abs().mean()))
         del carry, probe, hidden
+    return result
+
+
+# ---- the [tools] phase: the deliverable workflow around training ---------
+# TRAINING.md:226-231: BC pretrain, rl.train --init_model, the checkpoint
+# sweep; then the NPC distillation, the diagnostics, the audit and the
+# profilers. The BC widths are the deliverable's own command.
+BC_ENVS, BC_ROLLOUT_STEPS, BC_STEPS = 128, 600, 3000
+BC_BATCH, BC_INIT_ALPHA = 512, 0.05                    # bc_pretrain's defaults
+TOOLS_TRAIN_STEPS = 2
+TOOLS_EVAL_EPISODES = 25
+DISTILL_STEPS, DISTILL_BATCH = 1500, 256               # distill_npc's defaults
+DIAG_EPISODES, DIAG_MAX_STEPS = 16, 50                 # cut from the horizon, 200
+PROFILE_BATCHES = (256, 512)
+PROFILE_STEP_ENVS = 4096
+
+
+@contextlib.contextmanager
+def probed_bc(bc_mod, rc):
+    """While active, ``bc_pretrain``'s two stages are wrapped as its
+    ``main`` calls them: the demo collection is timed on the host's clock
+    and its rasterizer launches counted, and the shapes, bytes and action
+    range of its pairs noted; the BC phase runs between CUDA events and
+    under ``synchronizing_calls``. Yields a namespace of those readings."""
+    probe = types.SimpleNamespace()
+    plain = bc_mod.collect_demo_pairs, bc_mod.bc_phase
+
+    def collect(*args, **kw):
+        torch.cuda.synchronize()
+        n0, t0 = rc.render_obs_cuda.launches, time.perf_counter()
+        stacks, acts = plain[0](*args, **kw)
+        torch.cuda.synchronize()
+        probe.collect_s = time.perf_counter() - t0
+        probe.collect_launches = rc.render_obs_cuda.launches - n0
+        probe.stacks, probe.acts = ((tuple(t.shape), t.dtype, t.device.type)
+                                    for t in (stacks, acts))
+        probe.pairs_gb = sum(t.numel() * t.element_size()
+                             for t in (stacks, acts)) / 1e9
+        probe.acts_finite = bool(torch.isfinite(acts).all())
+        probe.acts_max = float(acts.abs().max())
+        return stacks, acts
+
+    def phase(actor, stacks, acts, steps, *args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        mses, probe.syncs = synchronizing_calls(
+            lambda: plain[1](actor, stacks, acts, steps, *args, **kw))
+        end.record()
+        end.synchronize()
+        probe.bc_ms = start.elapsed_time(end) / steps
+        return mses
+
+    bc_mod.collect_demo_pairs, bc_mod.bc_phase = collect, phase
+    try:
+        yield probe
+    finally:
+        bc_mod.collect_demo_pairs, bc_mod.bc_phase = plain
+
+
+def tools_phase(card) -> dict:
+    """Phase 8: the port's tools on the card, in the deliverable's order."""
+    from torchdriveenv_tpu_torch import config as tconfig
+    from torchdriveenv_tpu_torch.config import EnvConfig
+    from torchdriveenv_tpu_torch.env import core
+    from torchdriveenv_tpu_torch.env.batched import BatchedEnv
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    from torchdriveenv_tpu_torch.npc import policy_net
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    from torchdriveenv_tpu_torch.rl import train as train_mod
+    from torchdriveenv_tpu_torch.tools import (
+        audit_map_fidelity,
+        bc_pretrain,
+        diagnose_val,
+        distill_npc,
+        eval_checkpoints,
+        profile_learner,
+        profile_step,
+    )
+
+    result, launched = {}, {}
+    result["rasterizer_launches"] = launched
+    assets = load_assets("train")
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 1. the BC warm start: bc_pretrain's command at its width ----
+        cfg = EnvConfig()
+        bc_path = os.path.join(tmp, "bc_init")
+        with probed_bc(bc_pretrain, rc) as probe:
+            torch.cuda.synchronize()
+            rc.render_obs_cuda.launches = 0
+            res = bc_pretrain.main([
+                "--envs", str(BC_ENVS), "--rollout_steps",
+                str(BC_ROLLOUT_STEPS), "--bc_steps", str(BC_STEPS), "--out",
+                bc_path])
+            launched["bc_pretrain"] = rc.render_obs_cuda.launches
+        n_pairs = BC_ENVS * BC_ROLLOUT_STEPS
+        check(launched["bc_pretrain"] == probe.collect_launches
+              == BC_ROLLOUT_STEPS + 1,
+              f"BC: {launched['bc_pretrain']} rasterizer launches "
+              f"({probe.collect_launches} in the collection) for "
+              f"{BC_ROLLOUT_STEPS} steps and a reset")
+        check(res["pairs"] == n_pairs
+              and probe.stacks == ((n_pairs, 9, 64, 64), torch.uint8, "cuda")
+              and probe.acts == ((n_pairs, 2), torch.float32, "cuda"),
+              f"BC pairs: {res['pairs']} {probe.stacks} {probe.acts}")
+        check(probe.acts_finite and probe.acts_max <= 1.0 + 1e-6,
+              f"BC actions: finite {probe.acts_finite}, max "
+              f"{probe.acts_max}")
+        check(not probe.syncs, f"BC: synchronizing calls in the BC phase: "
+              f"{probe.syncs}")
+        log(f"[tools] bc_pretrain.main collection: {BC_ENVS} envs x "
+            f"{BC_ROLLOUT_STEPS} steps = {n_pairs} pairs "
+            f"({probe.pairs_gb:.2f} GB on the card) in {probe.collect_s:.1f} "
+            f"s ({probe.collect_s / BC_ROLLOUT_STEPS * 1e3:.1f} ms per env "
+            f"step); rasterizer launches {launched['bc_pretrain']} in the "
+            f"whole command (one per step and one at the reset) [{card}]")
+        mses = res["mses"]
+        mse_first, mse_last = float(mses[0]), float(mses[-100:].mean())
+        check(mses.shape == (BC_STEPS,) and bool(torch.isfinite(mses).all())
+              and mse_last < mse_first,
+              f"BC: action-MSE {mse_first} -> {mse_last}")
+        tree = train_mod.restore_checkpoint(bc_path)
+        check(tree["actor_opt"]["step"] == 0 and abs(
+            float(tree["log_alpha"]) - math.log(BC_INIT_ALPHA)) < 1e-6,
+            "BC checkpoint: actor Adam count or log_alpha")
+        log(f"[tools] bc_pretrain.main BC {BC_STEPS} steps of {BC_BATCH}: "
+            f"action-MSE {mse_first:.4f} -> {mse_last:.4f} (mean of the "
+            f"last 100); {probe.bc_ms:.3f} ms per step on the device's clock "
+            f"(the phase's CUDA events / {BC_STEPS}); synchronizing calls in "
+            f"the {BC_STEPS} steps: 0 [{card}]")
+        result["bc"] = dict(
+            envs=BC_ENVS, rollout_steps=BC_ROLLOUT_STEPS, bc_steps=BC_STEPS,
+            batch=BC_BATCH, pairs=n_pairs, pairs_gb=probe.pairs_gb,
+            collection_s=probe.collect_s,
+            collection_ms_per_env_step=probe.collect_s / BC_ROLLOUT_STEPS
+            * 1e3, bc_ms_per_step=probe.bc_ms, mse_first=mse_first,
+            mse_last100_mean=mse_last, synchronizing_calls_per_step=0)
+        del res, mses, probe
+
+        # ---- 2. rl.train --init_model from the stage-1 recipe -----------
+        raw = copy.deepcopy(RECIPES[SAC_YML])
+        n_envs, spi = raw["parallel_env_num"], raw["offpolicy_steps_per_iter"]
+        per_step = n_envs * spi
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        raw.update(total_timesteps=TOOLS_TRAIN_STEPS * per_step,
+                   log_dir=os.path.join(tmp, "runs"), checkpoint_dir=ckpt_dir)
+        raw["eval_val_callback"].update(n_steps=10 ** 9, record=False)
+        raw["eval_train_callback"].update(n_steps=10 ** 9)
+        raw["wandb_callback"].update(model_save_freq=per_step)
+        tcfg = tconfig.construct_rl_training_config(raw)
+        with probed_train(train_mod, rc) as probe:
+            torch.cuda.synchronize()
+            rc.render_obs_cuda.launches = 0
+            t0 = time.perf_counter()
+            carry = train_mod.train(tcfg, init_model=bc_path)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched["init_model_train"] = rc.render_obs_cuda.launches
+        rows = [dict(ms=e0.elapsed_time(e1), rasterizer_launches=n)
+                for e0, _, e1, n in probe.rows]
+        check(len(rows) == TOOLS_TRAIN_STEPS
+              and carry.env_steps == TOOLS_TRAIN_STEPS * per_step,
+              "init_model run: depth")
+        check(all(r["rasterizer_launches"] == 2 * spi for r in rows),
+              f"init_model run: launches {rows}")
+        first, after = probe.first, probe.agent.export_state()
+        for k, v in tree["actor"].items():
+            check(torch.equal(first["actor"][k], v),
+                  f"init_model run: the starting actor's {k} is not BC's")
+            # the recipe freezes the actor (actor_delay_updates)
+            check(torch.equal(after["actor"][k], v),
+                  f"init_model run: the frozen actor's {k} moved")
+        check(first["actor_opt"]["step"] == 0 and abs(
+            float(first["log_alpha"]) - math.log(BC_INIT_ALPHA)) < 1e-6,
+            "init_model run: the starting Adam count or log_alpha")
+        warm = -(-probe.agent.cfg.learning_starts // per_step)
+        updates = (TOOLS_TRAIN_STEPS - warm) * raw["offpolicy_updates_per_iter"]
+        check(after["step"] == updates, f"init_model run: {after['step']} "
+              f"updates")
+        models = eval_checkpoints.model_names(ckpt_dir)
+        check(models == [f"model_{(i + 1) * per_step}"
+                         for i in range(TOOLS_TRAIN_STEPS)],
+              f"init_model run: checkpoints {models}")
+        log(f"[tools] rl.train --init_model ({SAC_YML}): {TOOLS_TRAIN_STEPS} "
+            f"train steps (" + "; ".join(f"{r['ms']:.1f} ms"
+                                         for r in rows)
+            + f"), {updates} updates, {wall:.1f} s wall with one evaluation; "
+            f"the starting actor is BC's, Adam count 0; wrote {models} "
+            f"[{card}]")
+        result["init_model_train"] = dict(
+            source=SAC_YML, train_steps=rows, updates=updates, wall_s=wall,
+            checkpoints=models)
+        del carry, probe, first, after
+
+        # ---- 3. the checkpoint sweep: BC and the run's model_* ----------
+        shutil.copy(bc_path, os.path.join(ckpt_dir, "model_0"))
+        torch.cuda.synchronize()
+        rc.render_obs_cuda.launches = 0
+        t0 = time.perf_counter()
+        sweep = eval_checkpoints.main([
+            "--ckpt_dir", ckpt_dir, "--episodes", str(TOOLS_EVAL_EPISODES),
+            "--out", os.path.join(tmp, "sweep.json")])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launched["eval_checkpoints"] = rc.render_obs_cuda.launches
+        horizon = cfg.max_environment_steps
+        check([r["step"] for r in sweep] == [0] + [
+            (i + 1) * per_step for i in range(TOOLS_TRAIN_STEPS)],
+            "eval_checkpoints: order")
+        check(launched["eval_checkpoints"] == len(sweep) * (1 + horizon),
+              f"eval_checkpoints: {launched['eval_checkpoints']} launches")
+        for r in sweep:
+            check(all(math.isfinite(v) for k, v in r.items()
+                      if k != "checkpoint"), f"eval_checkpoints: {r}")
+        log(f"[tools] eval_checkpoints over {len(sweep)} checkpoints x "
+            f"{TOOLS_EVAL_EPISODES} val episodes in {sweep_s:.1f} s: "
+            + "; ".join(f"{r['checkpoint']} success "
+                        f"{r['success_percentage']:.2f} (cases "
+                        + " ".join(f"{r[f'success_case_{i}']:.2f}"
+                                   for i in range(5))
+                        + f"), reward {r['mean_episode_reward']:.1f}"
+                        for r in sweep) + f" [{card}]")
+        # the recipe freezes the actor, so every checkpoint acts as BC does
+        same = all({k: v for k, v in r.items() if k not in ("checkpoint",
+                                                           "step")}
+                   == {k: v for k, v in sweep[0].items()
+                       if k not in ("checkpoint", "step")} for r in sweep)
+        log(f"[tools] eval_checkpoints: the checkpoints' metrics are "
+            f"{'identical' if same else 'not identical'} (one actor)")
+        result["eval_checkpoints"] = dict(episodes=TOOLS_EVAL_EPISODES,
+                                          seconds=sweep_s, rows=sweep,
+                                          identical_metrics=same)
+
+        # ---- 4. the NPC distillation ------------------------------------
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = distill_npc.main(["--steps", str(DISTILL_STEPS), "--batch",
+                                str(DISTILL_BATCH), "--out",
+                                os.path.join(tmp, "npc_gru.npz")])
+        torch.cuda.synchronize()
+        distill_s = time.perf_counter() - t0
+        loaded = policy_net.load_npc_policy(res["path"])
+        for k, v in res["policy"].state_dict().items():
+            check(torch.equal(loaded.state_dict()[k], v),
+                  f"distilled GRU: {k} differs once loaded back")
+        scenes = core.reset(cfg, assets, DISTILL_BATCH,
+                            torch.Generator(device="cuda").manual_seed(9))
+        with torch.no_grad():
+            loss_mine = float(policy_net.distill_loss(loaded, assets.maps,
+                                                      scenes))
+            loss_shipped = float(policy_net.distill_loss(
+                policy_net.default_params(), assets.maps, scenes))
+        check(math.isfinite(res["loss"]) and math.isfinite(loss_mine),
+              "distillation loss")
+        pcfg = EnvConfig(npc_mode="policy")
+        penv = BatchedEnv(pcfg, assets, N_ENVS, seed=5, npc_params=loaded)
+        pstate, _ = penv.reset()
+        act = torch.zeros((N_ENVS, 2), device="cuda")
+        torch.cuda.synchronize()
+        rc.render_obs_cuda.launches = 0
+        for _ in range(4):
+            pout = penv.step(pstate, act)
+            pstate = pout.state
+        torch.cuda.synchronize()
+        launched["distilled_policy_steps"] = rc.render_obs_cuda.launches
+        hidden = pstate.npc_hidden
+        check(launched["distilled_policy_steps"] == 4
+              and bool(torch.isfinite(hidden).all())
+              and float(hidden.abs().max()) > 0.0
+              and bool(torch.isfinite(pstate.agent_states).all()),
+              "policy-mode steps with the distilled GRU")
+        log(f"[tools] distill_npc: {DISTILL_STEPS} steps of {DISTILL_BATCH} "
+            f"scenes in {distill_s:.1f} s, final imitation MSE "
+            f"{res['loss']:.4f}; on {DISTILL_BATCH} fresh scenes "
+            f"{loss_mine:.4f} (the "
+            f"shipped GRU {loss_shipped:.4f}); loaded back equal; 4 "
+            f"policy-mode steps of {N_ENVS} envs with it, mean |h| "
+            f"{float(hidden.abs().mean()):.4f} [{card}]")
+        result["distill"] = dict(
+            steps=DISTILL_STEPS, batch=DISTILL_BATCH, seconds=distill_s,
+            final_loss=res["loss"], loss_on_fresh_scenes=loss_mine,
+            shipped_loss_on_fresh_scenes=loss_shipped)
+        del penv, pstate, pout, hidden, scenes
+
+        # ---- 5. the validation diagnostics, six probes ------------------
+        val = load_assets("val")
+        bc_agent = diagnose_val.restore_agent(bc_path, 9)
+        torch.cuda.synchronize()
+        rc.render_obs_cuda.launches = 0
+        t0 = time.perf_counter()
+        diag = diagnose_val.diagnose(
+            diagnose_val.probe_config(), val, "val", diagnose_val.PROBES,
+            DIAG_EPISODES, 5, seed=0, agent=bc_agent,
+            max_steps=DIAG_MAX_STEPS)
+        torch.cuda.synchronize()
+        diag_s = time.perf_counter() - t0
+        launched["diagnose_sac_probe"] = rc.render_obs_cuda.launches
+        check(sorted(diag) == sorted(diagnose_val.PROBES)
+              and all(len(rows) == 5 for rows in diag.values()),
+              "diagnose_val: probes or cases")
+        check(launched["diagnose_sac_probe"] == 5 * (1 + DIAG_MAX_STEPS),
+              f"diagnose_val: {launched['diagnose_sac_probe']} launches")
+        counts = {kind: {c: sum(r["counts"][c] for r in rows)
+                         for c in diagnose_val.CAUSES}
+                  for kind, rows in diag.items()}
+        for kind, c in counts.items():
+            check(sum(c.values()) == 5 * DIAG_EPISODES,
+                  f"diagnose_val {kind}: {c}")
+        log(f"[tools] diagnose_val: 6 probes x 5 val cases x {DIAG_EPISODES} "
+            f"episodes x {DIAG_MAX_STEPS} steps in {diag_s:.1f} s (sac = the "
+            f"BC checkpoint): " + "; ".join(
+                f"{kind} " + " ".join(f"{k}={v}" for k, v in c.items())
+                for kind, c in counts.items()) + f" [{card}]")
+        result["diagnose_val"] = dict(
+            episodes=DIAG_EPISODES, max_steps=DIAG_MAX_STEPS,
+            seconds=diag_s, counts=counts,
+            mean_reached={kind: [r["mean_reached"] for r in rows]
+                          for kind, rows in diag.items()})
+        del bc_agent, diag
+
+        # ---- 6. the map audit on the card against the CPU ---------------
+        audit_json = os.path.join(tmp, "audit.json")
+        t0 = time.perf_counter()
+        rc_audit = audit_map_fidelity.main(["--json", audit_json])
+        audit_s = time.perf_counter() - t0
+        with open(audit_json) as f:
+            on_card = json.load(f)
+        on_cpu = audit_map_fidelity.audit("cpu")
+        worst = 0.0
+        for got, (name, want) in zip(on_card, on_cpu):
+            check(got["check"] == name, "audit: order")
+            for k, w in want.items():
+                if isinstance(w, float):
+                    worst = max(worst, abs(got[k] - w))
+                else:
+                    check(got[k] == w, f"audit {name} {k}: card {got[k]}, "
+                          f"CPU {w}")
+        check(rc_audit == 0 and worst <= 1e-4,
+              f"audit: exit code {rc_audit}, worst float {worst}")
+        log(f"[tools] audit_map_fidelity on the card: {len(on_card)} checks, "
+            f"{sum(r['n'] for r in on_card)} items, violations "
+            f"{sum(r['violations'] for r in on_card)}, counts equal to the "
+            f"CPU's, worst float difference {worst:.2e}, {audit_s:.1f} s")
+        result["audit"] = dict(checks=len(on_card), seconds=audit_s,
+                               violations=sum(r["violations"]
+                                              for r in on_card),
+                               worst_float_vs_cpu=worst)
+
+        # ---- 7. the profilers -------------------------------------------
+        learner = profile_learner.main(
+            ["--batches"] + [str(b) for b in PROFILE_BATCHES]
+            + ["--out", os.path.join(tmp, "learner.json")])
+        for b in PROFILE_BATCHES:
+            row = learner["update_sweep"][b]
+            check(row["launches"] > 0 and row["flops"] > 0,
+                  f"profile_learner b={b}: {row}")
+            log(f"[tools] profile_learner update b={b}: {row['ms']:.2f} ms, "
+                f"{row['launches']} launches, {row['flops'] / 1e9:.1f} GFLOP "
+                f"({row['tensor_share_of_bf16_peak']:.4f} of the bf16 peak), "
+                f"{row['min_bytes'] / 1e6:.1f} MB at least "
+                f"({row['hbm_share_of_peak']:.4f} of HBM's); sample "
+                f"{learner['sample_sweep'][b]['ms']:.2f} ms, "
+                f"{learner['sample_sweep'][b]['launches']} launches [{card}]")
+        for k in ("learn_phase", "rollout_phase", "fused_train_step"):
+            check(learner[k]["launches"] > 0, f"profile_learner {k}")
+            log(f"[tools] profile_learner {k}: {learner[k]['ms']:.1f} ms, "
+                f"{learner[k]['launches']} launches [{card}]")
+        step_rep = profile_step.main(["--num_envs", str(PROFILE_STEP_ENVS)])
+        check(all(v > 0 for v in step_rep["ms"].values()), "profile_step")
+        result["profile_learner"] = learner
+        result["profile_step"] = step_rep
     return result
 
 
@@ -1593,7 +1988,7 @@ def multi_worker(args) -> int:
 
 
 def multi_phase(card) -> dict:
-    """Phase 8: data parallelism. World 1 under nccl must equal the run
+    """Phase 9: data parallelism. World 1 under nccl must equal the run
     with no process group; world 2 under gloo, both ranks on the one card,
     must equal one process on the 4096-env rollout, a pooled-reset step and
     small SAC / PPO train steps. Each case runs in subprocesses with a
@@ -1953,6 +2348,7 @@ def main() -> int:
     learner = learner_phase(assets, env, state, act, card)
     del env, state, out
     trained = train_phase(card, have)
+    tools = tools_phase(card)
     multi = multi_phase(card)
 
     print(json.dumps({"kernels": [{
@@ -1968,6 +2364,7 @@ def main() -> int:
         "bound_by": main_cmp["bound_by"],
         "library_ms": None,
         "multi_launches": multi["world2"]["launches"],
+        "tools_launches": tools["rasterizer_launches"],
         "bytes_bound_ms": main_cmp["bytes_bound_ms"],
         "scan_all_operations_bound_ms": main_cmp["scan_all_operations_bound_ms"],
         "cull": {k: main_cmp[k] for k in (
@@ -1979,7 +2376,8 @@ def main() -> int:
                       "phases_ms": phases,
                       "nseg_mean": main_cmp["nseg_mean"]},
         "npc_path": npc, "gym_path": gym, "learner_path": learner,
-        "train_path": trained, "multi_path": multi}), flush=True)
+        "train_path": trained, "tools_path": tools,
+        "multi_path": multi}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

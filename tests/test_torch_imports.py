@@ -39,9 +39,14 @@ def test_the_package_has_the_slice_modules():
                 "parallel/train_step", "rl/optim", "rl/ppo", "rl/a2c",
                 "rl/td3", "rl/train", "utils/__init__", "utils/video",
                 "npc/policy_net", "env/gym_adapter", "utils/seeding",
-                "parallel/mesh", "maps/compile", "data_utils"):
+                "parallel/mesh", "maps/compile", "data_utils",
+                "tools/__init__", "tools/distill_npc", "tools/bc_pretrain",
+                "tools/eval_checkpoints", "tools/profile_learner",
+                "tools/profile_step", "tools/diagnose_val",
+                "tools/audit_map_fidelity", "examples/__init__",
+                "examples/evaluate_policy", "examples/rollout_example"):
         assert f"torchdriveenv_tpu_torch/{mod}.py" in rel, mod
-    for data in ("csrc/rasterizer.cu",
+    for data in ("csrc/rasterizer.cu", "examples/train_gpu.sh",
                  "assets/deliverable_sac_stage1_actor.npz",
                  "assets/npc_gru_v1.npz"):
         assert os.path.exists(os.path.join(ROOT, "torchdriveenv_tpu_torch",

@@ -41,18 +41,33 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, iters: int = 3) -> float:
-    """Best-of-`iters` wall time of fn() in ms, ending in a synchronize
-    (one warm-up call first)."""
+def timed_ms(fn, iters: int = 3, device="cuda", events: bool = False
+             ) -> float:
+    """Best-of-`iters` time of fn() in ms, after one warm-up call. By
+    default the host's clock, each call ending in a synchronize of
+    ``device``; with ``events`` on a GPU, CUDA events around each call
+    (the device's clock). On the CPU every call returns when its work is
+    done, and the host's clock is the only one."""
+    on_gpu = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
     fn()
-    torch.cuda.synchronize()
+    sync()
     best = float("inf")
     for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    return best * 1e3
+        if events and on_gpu:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
 
 
 def phase_ms(cfg, assets, state, generator) -> dict:
@@ -72,25 +87,36 @@ def phase_ms(cfg, assets, state, generator) -> dict:
     }
 
 
-def profile_steps(step_fn, state, actions, generator, steps: int,
-                  trace_path: str) -> dict:
-    """Trace `steps` env steps with torch.profiler: the chrome trace goes to
-    `trace_path`; returns the device's busy and idle share of the window
-    and the kernels that took most device time."""
+def traced_kernels(fn, trace_path: str):
+    """fn() under torch.profiler (CPU and CUDA activity), its chrome trace
+    written to `trace_path` -> (the window's wall seconds, ending in a
+    synchronize; the trace's kernel events)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            state = step_fn(state, actions, generator).state
+        fn()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return window_s, [e for e in events if e.get("cat") == "kernel"]
+
+
+def profile_steps(step_fn, state, actions, generator, steps: int,
+                  trace_path: str) -> dict:
+    """Trace `steps` env steps with torch.profiler: the chrome trace goes to
+    `trace_path`; returns the device's busy and idle share of the window
+    and the kernels that took most device time."""
+    def run():
+        nonlocal state
+        for _ in range(steps):
+            state = step_fn(state, actions, generator).state
+
+    window_s, kernels = traced_kernels(run, trace_path)
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
     busy_us, end = 0.0, -float("inf")
     for lo, hi in spans:                      # union of kernel intervals

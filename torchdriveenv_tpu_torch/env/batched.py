@@ -16,7 +16,7 @@ import torch
 from torchdriveenv_tpu_torch.config import EnvConfig
 from torchdriveenv_tpu_torch.env import core
 from torchdriveenv_tpu_torch.maps.arrays import Assets, resolve_device
-from torchdriveenv_tpu_torch.npc.policy_net import default_params
+from torchdriveenv_tpu_torch.npc.policy_net import NpcGRU, default_params
 from torchdriveenv_tpu_torch.ops.rasterizer_cuda import render_observation
 from torchdriveenv_tpu_torch.parallel.mesh import Mesh, offset_of
 
@@ -100,7 +100,8 @@ def _no_obs(batch: int, cfg: EnvConfig, device) -> torch.Tensor:
 
 
 def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
-                 with_final_obs: bool = False, mesh: Optional[Mesh] = None
+                 with_final_obs: bool = False, mesh: Optional[Mesh] = None,
+                 npc_params: Optional[NpcGRU] = None
                  ) -> Tuple[Callable, Callable]:
     """Batched (reset_fn, step_fn) on the assets' device.
 
@@ -116,12 +117,14 @@ def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
     also returns the pre-auto-reset observation (``StepOutput.final_obs``);
     in pooled mode only the pool is rendered a second time.
 
-    In ``npc_mode="policy"`` the shipped GRU NPC policy is loaded once onto
-    the assets' device and drives every step; done envs restart from a
-    zero hidden state, as every fresh reset has it.
+    In ``npc_mode="policy"`` the GRU NPC policy ``npc_params`` (default:
+    the shipped one, loaded once onto the assets' device) drives every
+    step; done envs restart from a zero hidden state, as every fresh reset
+    has it.
     """
     dev = assets.device
-    npc_params = default_params(dev) if cfg.npc_mode == "policy" else None
+    if cfg.npc_mode == "policy" and npc_params is None:
+        npc_params = default_params(dev)
 
     def obs_of(state: core.EnvState) -> torch.Tensor:
         if render:
@@ -135,6 +138,9 @@ def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
                            mesh=mesh)
         return state, obs_of(state)
 
+    # no autograd graph: a trainable ``npc_params`` would chain one through
+    # ``npc_hidden`` from step to step
+    @torch.no_grad()
     def step_fn(state: core.EnvState, actions: torch.Tensor,
                 generator: torch.Generator) -> StepOutput:
         next_state, reward, term, trunc, info = core.step(
@@ -168,12 +174,14 @@ class BatchedEnv:
 
     ``device=None`` means the GPU, and raises when there is none. With a
     ``mesh``, ``num_envs`` is the global count and this process holds the
-    rank's rows of it.
+    rank's rows of it. ``npc_params``: the GRU NPC policy of
+    ``npc_mode="policy"`` (default: the shipped one).
     """
 
     def __init__(self, cfg: EnvConfig, assets: Assets, num_envs: int,
                  device=None, seed: int = 0, render: bool = True,
-                 with_final_obs: bool = False, mesh: Optional[Mesh] = None):
+                 with_final_obs: bool = False, mesh: Optional[Mesh] = None,
+                 npc_params: Optional[NpcGRU] = None):
         self.device = resolve_device(device)
         if assets.device.type != self.device.type:
             raise ValueError(f"assets are on {assets.device}, the env on "
@@ -185,7 +193,7 @@ class BatchedEnv:
         self.generator.manual_seed(seed)
         self._reset, self._step = make_env_fns(
             cfg, assets, render=render, with_final_obs=with_final_obs,
-            mesh=mesh)
+            mesh=mesh, npc_params=npc_params)
 
     def reset(self, cases: Optional[torch.Tensor] = None):
         return self._reset(self.generator, self.num_envs, cases)

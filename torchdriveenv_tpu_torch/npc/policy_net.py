@@ -113,6 +113,18 @@ def load_npc_policy(path: Optional[str] = None, device=None) -> NpcGRU:
     return policy.to(resolve_device(device))
 
 
+def save_npc_policy(policy: NpcGRU, path: Optional[str] = None) -> str:
+    """Write ``policy`` as the ``.npz`` that ``load_npc_policy`` reads:
+    float32 arrays under the ``state_dict`` keys. The default path is the
+    shipped asset ``NPC_POLICY``, which this overwrites. Returns the path."""
+    path = path or NPC_POLICY
+    arrays = {k: v.detach().cpu().numpy().astype(np.float32)
+              for k, v in policy.state_dict().items()}
+    with open(path, "wb") as f:     # a file object: np.savez adds no suffix
+        np.savez(f, **arrays)
+    return path
+
+
 @functools.lru_cache(maxsize=None)
 def _default_policy(device: torch.device) -> NpcGRU:
     return load_npc_policy(device=device).requires_grad_(False).eval()
@@ -234,4 +246,5 @@ def distill(assets: Assets, steps: int = 2000, batch: int = 256,
         opt.zero_grad()
         loss.backward()
         opt.step()
-    return policy, float(loss) if loss is not None else float("nan")
+    return policy, (float(loss.detach()) if loss is not None
+                   else float("nan"))
