@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase catches and carries on):
-  1. build   compile every CUDA kernel of the main path from csrc/ (nvcc,
+  1. build   compile every CUDA kernel of the port from csrc/ (nvcc,
              sm_90a) and print the time and nvcc's register report;
   2. kernels hold the rasterizer kernel against its plain torch twin on the
              card, bit for bit, at the main path's shapes (4096 train envs
@@ -18,6 +18,26 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              the ego); time the kernel and the twin, and print them beside
              both bounds and the number of segments that survive the
              kernel's culls;
+  2b. maps  the offline map compiler (maps/compile.py, maps/mapkit.py,
+             tools/compile_assets.py). The stamp and EDT kernels of
+             csrc/mapkit.cu held against their plain twins on the card, bit
+             for bit: each town's corridor segments at 1024 x 1024 (the
+             stamp, then the EDTs of its offroad, road and covered pixels)
+             and edge grids (empty, all source, one pixel, one source,
+             random 1000 x 1000; zero-length, outside and partly outside
+             segments, no segments, a one-pixel grid); both timed beside
+             their bounds. compile_assets on the card from the compiler's
+             inputs rebuilt from the shipped bundles, with the launch counts
+             set to 0 just before and read just after (one stamp and three
+             EDTs a town); its files against the shipped ones (suites and
+             background bit-equal; sdf, sdf_gx, sdf_gy at most a 1e-5 share
+             of float16 values apart; dir_angle at most a 1e-4 share over
+             0.01 rad; seg_cell_n, light_mask exact; origins and stoplines
+             1e-4; every seg_data row within 2e-4 of a row of its cell,
+             both ways). One town compiled on the CPU through the twins
+             equals the card's. The main batch rendered through the kernel
+             with the compiled maps: at most a 1e-3 share of pixels apart
+             from the shipped maps' frames.
   3. main    drive the port's main path, BatchedEnv.step at 4096 envs with
              the default EnvConfig, with the launch counts set to 0 just
              before and read just after; the kernel must have launched once
@@ -173,6 +193,357 @@ def rasterizer_bound_ms(maps, town, ci, cj, nseg):
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes > t_ops else "operations",
             t_bytes * 1e3, t_ops * 1e3)
+
+
+# ---- the [maps] phase: the offline map compiler -------------------------
+
+# H100 SXM data sheet: float64 outside the tensor cores
+PEAK_F64_OPS = 34e12
+# float64 operations of the stamp per (pixel, segment) pair inside the
+# segment's window: 2 sub, 2 mul, add, div, 2 clamp, 2 mul, 2 sub, 2 mul,
+# add, compare, sqrt, narrow, compare
+STAMP_OPS = 20
+# operations per pixel of a linear-time exact EDT (a lower envelope per
+# line in each of the two passes: intersections, pushes, pops, the fill)
+EDT_LINEAR_OPS = 40
+MAPS_KERNEL_REPS = 20
+MAPS_CPU_TOWN = "Town01"     # the town compiled on the CPU too (fewest segments)
+
+
+def stamp_bounds_ms(grid, win, n):
+    """Least time for one stamp: the three grids read and written once
+    (1 + 4 + 4 bytes a pixel each way) and the segment table read once,
+    against the float64 operations of the (pixel, segment) pairs inside the
+    windows. Returns (bytes ms, operations ms, pairs)."""
+    area = ((win[:, 2] - win[:, 0]).clip(min=0).astype("int64")
+            * (win[:, 3] - win[:, 1]).clip(min=0).astype("int64"))
+    pairs = int(area.sum())
+    nbytes = 18 * grid * grid + n * (6 * 8 + 5 * 4 + 4)
+    return (nbytes / PEAK_HBM_BYTES * 1e3,
+            STAMP_OPS * pairs / PEAK_F64_OPS * 1e3, pairs)
+
+
+def edt_bounds_ms(grid):
+    """Least time for one EDT: the uint8 source read once, the float32
+    distance and int32 index written once, against a linear-time exact
+    transform's operations. Returns (bytes ms, operations ms, the brute
+    force's min-plus steps' ms at the f32 rate)."""
+    px = grid * grid
+    return (9 * px / PEAK_HBM_BYTES * 1e3,
+            EDT_LINEAR_OPS * px / PEAK_F32_OPS * 1e3,
+            3 * 2 * grid ** 3 / PEAK_F32_OPS * 1e3)
+
+
+def maps_phase(assets, state, card) -> dict:
+    """[maps]: the offline map compiler on the card. (1) The stamp and EDT
+    kernels against their twins on the card, bit for bit, on each town's
+    corridor segments at 1024 x 1024 (the stamp, then the EDTs of its
+    offroad, its road and its covered pixels) and on edge grids; both timed
+    beside their bounds. (2) compile_assets on the card from the compiler's
+    inputs rebuilt from the shipped bundles, its kernel launches counted
+    (a town: one stamp, and three EDTs of two passes each), its files held
+    to the shipped ones.
+    (3) One town compiled on the CPU through the twins equals the card's.
+    (4) The [kernels] main batch rendered through the kernel with the
+    compiled maps against the shipped maps' frames."""
+    import numpy as np
+
+    import torchdriveenv_tpu_torch
+    from torchdriveenv_tpu_torch.config import EnvConfig
+    from torchdriveenv_tpu_torch.maps import compile as mc
+    from torchdriveenv_tpu_torch.maps import mapkit as mk
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    from torchdriveenv_tpu_torch.tools import compile_assets as ca
+
+    t_phase = time.perf_counter()
+    shipped_dir = torchdriveenv_tpu_torch._data_path[0]
+
+    def shipped(name):
+        return np.load(os.path.join(shipped_dir, name))
+
+    suites = {s: mc.suite_from_bundle(shipped(f"suite_{s}_v1.npz"))
+              for s in ("train", "val")}
+    background = mc.background_from_bundle(shipped("background_v1.npz"))
+    g = mc.GRID
+    dev = "cuda"
+    err = dict(stamp=0.0, edt=0.0)     # kernel against twin, max abs
+
+    def grids(n=g):
+        return (torch.zeros((n, n), dtype=torch.uint8, device=dev),
+                torch.full((n, n), 1e9, dtype=torch.float32, device=dev),
+                torch.zeros((n, n), dtype=torch.float32, device=dev))
+
+    def stamp_pair(n, origin, p0, p1, hw, label):
+        kern, twin = grids(n), grids(n)
+        mk.stamp_segments_cuda(n, origin, mc.SCALE, p0, p1, hw, *kern)
+        mk.stamp_segments_torch(n, origin, mc.SCALE, p0, p1, hw, *twin)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("drivable", "dir_best_d", "dir_angle"), kern,
+                              twin):
+            check(torch.equal(a, b), f"[maps] stamp kernel != twin on {label}: "
+                  f"{name} differs at {int((a != b).sum())} pixels")
+            err["stamp"] = max(err["stamp"],
+                               float((a.double() - b.double()).abs().max()))
+        return kern
+
+    def edt_pair(src, label):
+        kd, ki = mk.edt_cuda(src)
+        td, ti = mk.edt_torch(src)
+        torch.cuda.synchronize()
+        check(torch.equal(kd, td) and torch.equal(ki, ti),
+              f"[maps] edt kernel != twin on {label}: distance differs at "
+              f"{int((kd != td).sum())}, index at {int((ki != ti).sum())} "
+              "pixels")
+        err["edt"] = max(err["edt"], float((kd.double() - td.double()).abs()
+                                           .max()))
+        return kd, ki
+
+    # ---- (1) kernels against twins: the five towns --------------------
+    by_town, stamp_ms, stamp_twin_ms, edt_ms, edt_twin_ms = {}, [], [], [], []
+    stamp_b, stamp_o, edt_b, edt_o = [], [], [], []
+    for town in mc.TOWNS:
+        segs, pts, _ = mc.town_content(suites, background, town)
+        origin = mc.grid_origin(pts)
+        p0, p1, hw = mc.segment_arrays(segs)
+        drv, best, ang = stamp_pair(g, origin, p0, p1, hw, town)
+        table = mk.segment_table(g, origin, mc.SCALE, p0, p1, hw)
+        work = grids()
+        k_ms = cuda_ms(lambda: mk.stamp_segments_cuda(
+            g, origin, mc.SCALE, p0, p1, hw, *work, table=table),
+            MAPS_KERNEL_REPS)
+        t_ms = cuda_ms(lambda: mk.stamp_segments_torch(
+            g, origin, mc.SCALE, p0, p1, hw, *grids()), 1)
+        b_ms, o_ms, pairs = stamp_bounds_ms(g, table[1], len(hw))
+        sources = {"offroad": (drv == 0).to(torch.uint8), "road": drv,
+                   "covered": (best < 1e8).to(torch.uint8)}
+        e_ms, et_ms = {}, {}
+        for name, src in sources.items():
+            edt_pair(src, f"{town} {name}")
+            e_ms[name] = cuda_ms(lambda: mk.edt_cuda(src), MAPS_KERNEL_REPS)
+            et_ms[name] = cuda_ms(lambda: mk.edt_torch(src), 2)
+        eb_ms, eo_ms, brute_ms = edt_bounds_ms(g)
+        by_town[town] = dict(
+            segments=len(hw), window_pairs=pairs,
+            drivable_share=float(drv.float().mean()),
+            stamp_ms=k_ms, stamp_twin_ms=t_ms, stamp_bytes_bound_ms=b_ms,
+            stamp_operations_bound_ms=o_ms, edt_ms=e_ms, edt_twin_ms=et_ms)
+        stamp_ms.append(k_ms), stamp_twin_ms.append(t_ms)
+        stamp_b.append(b_ms), stamp_o.append(o_ms)
+        edt_ms += list(e_ms.values())
+        edt_twin_ms += list(et_ms.values())
+        edt_b.append(eb_ms), edt_o.append(eo_ms)
+        log(f"[maps] {town}: {len(hw)} segments, {pairs} (pixel, segment) "
+            f"pairs, drivable {by_town[town]['drivable_share']:.4f}; stamp "
+            f"kernel {k_ms:.4f} ms, twin {t_ms:.1f} ms, bounds: bytes "
+            f"{b_ms:.4f} ms, operations {o_ms:.4f} ms; edt kernel "
+            + ", ".join(f"{k} {v:.4f}" for k, v in e_ms.items())
+            + " ms, twin " + ", ".join(f"{k} {v:.2f}" for k, v in et_ms.items())
+            + f" ms, bounds: bytes {eb_ms:.4f} ms, operations {eo_ms:.5f} ms "
+            f"(the brute force's steps {brute_ms:.3f} ms); kernel = twin "
+            f"[{card}]")
+        del drv, best, ang, work, sources
+
+    # ---- (1b) edge grids ------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    edt_pair(torch.zeros((g, g), dtype=torch.uint8, device=dev), "empty grid")
+    edt_pair(torch.ones((g, g), dtype=torch.uint8, device=dev), "all source")
+    for n, val in ((1, 1), (1, 0)):
+        edt_pair(torch.full((n, n), val, dtype=torch.uint8, device=dev),
+                 f"one pixel, source {val}")
+    one = torch.zeros((g, g), dtype=torch.uint8, device=dev)
+    one[317, 901] = 1
+    edt_pair(one, "a single source")
+    for p in (0.001, 0.5):
+        edt_pair((torch.rand((1000, 1000), generator=gen, device=dev) < p)
+                 .to(torch.uint8), f"random 1000 x 1000, p {p}")
+    rng = np.random.default_rng(6)
+    origin = np.array([-30.0, -30.0])
+    p0 = rng.uniform(-60.0, 500.0, (300, 2))
+    p1 = p0 + rng.uniform(-30.0, 30.0, (300, 2))
+    hw = rng.uniform(1.0, 6.0, 300)
+    p1[::7] = p0[::7]                                   # zero length
+    p0[1::11] = rng.uniform(-400.0, -100.0, (len(p0[1::11]), 2))  # outside
+    p1[1::11] = p0[1::11] + 20.0
+    p0[2::13] = rng.uniform(-45.0, -20.0, (len(p0[2::13]), 2))   # partly
+    stamp_pair(g, origin, p0, p1, hw, "random segments with zero-length, "
+               "outside and partly outside ones")
+    stamp_pair(1000, origin, p0, p1, hw, "the same on a 1000 x 1000 grid")
+    stamp_pair(g, origin, p0[:0], p1[:0], hw[:0], "no segments")
+    stamp_pair(1, np.array([0.0, 0.0]), np.array([[0.1, 0.1]]),
+               np.array([[0.4, 0.2]]), np.array([0.5]), "a one-pixel grid")
+    log("[maps] kernels = twins on the edge grids (empty, all source, one "
+        "pixel, one source, random 1000^2; zero-length and outside segments, "
+        "1000^2, none, one pixel)")
+
+    # ---- (2) compile_assets on the card ---------------------------------
+    tmp = tempfile.mkdtemp(prefix="tde_maps_")
+    try:
+        torch.cuda.synchronize()
+        mk.stamp_segments_cuda.launches = 0
+        mk.edt_cuda.launches = 0
+        t0 = time.perf_counter()
+        ca.compile_assets(suites, background, tmp, device=dev)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        launches = dict(stamp=mk.stamp_segments_cuda.launches,
+                        edt=mk.edt_cuda.launches)
+        n_t = len(mc.TOWNS)
+        log(f"[maps] compile_assets on the card: {compile_s:.2f} s, "
+            f"launches {launches} for {n_t} towns [{card}]")
+        check(launches == dict(stamp=n_t, edt=2 * 3 * n_t),
+              f"[maps] launches {launches}, want {n_t} stamps and "
+              f"{3 * n_t} EDTs of two launches each")
+        fidelity = _maps_fidelity(tmp, shipped, mc)
+
+        # ---- (3) one town on the CPU through the twins --------------------
+        t0 = time.perf_counter()
+        cpu = ca.compile_town(suites, background, MAPS_CPU_TOWN, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        card_maps = np.load(os.path.join(tmp, "maps_v1.npz"))
+        ti = mc.TOWNS.index(MAPS_CPU_TOWN)
+        for k, v in cpu.items():
+            check(np.array_equal(card_maps[k][ti], v),
+                  f"[maps] {MAPS_CPU_TOWN} {k}: the CPU's compile != the card's")
+        log(f"[maps] {MAPS_CPU_TOWN} compiled on the CPU (twins) in "
+            f"{cpu_s:.2f} s: every array equal to the card's")
+
+        # ---- (4) frames from the compiled maps ----------------------------
+        compiled = load_assets("train", device=dev, assets_dir=tmp).maps
+        cfg = EnvConfig()
+        t = state.time0 + state.step_idx.float() * cfg.simulator.dt
+        case = state.case.long()
+
+        def frames(maps):
+            prep = rc.prepare_obs_inputs(
+                maps, state.town, t, state.agent_states, state.agent_attrs,
+                state.present, assets.suite.waypoints[case], state.target_idx,
+                assets.suite.n_waypoints[case],
+                fov=cfg.simulator.renderer.obs_fov)
+            return rc.render_obs_cuda(maps, state.town, *prep)
+
+        new, old = frames(compiled), frames(assets.maps)
+        px_share = float((new != old).any(1).float().mean())
+        log(f"[maps] the main batch ({state.town.shape[0]} envs) rendered "
+            f"with the compiled maps: {px_share:.3g} of the pixels differ "
+            "from the shipped maps' frames")
+        check(px_share <= 1e-3, f"[maps] {px_share} of the pixels differ")
+        del compiled, new, old
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    mean = lambda xs: sum(xs) / len(xs)   # noqa: E731
+    phase_s = time.perf_counter() - t_phase
+    log(f"[maps] phase {phase_s:.1f} s")
+    return dict(
+        towns=by_town, compile_assets_s=compile_s, launches=launches,
+        cpu_town=MAPS_CPU_TOWN, cpu_town_s=cpu_s, frames_pixel_share=px_share,
+        fidelity=fidelity, phase_s=phase_s,
+        max_abs_err=err,
+        stamp=dict(ms=mean(stamp_ms), plain_ms=mean(stamp_twin_ms),
+                   bytes_bound_ms=mean(stamp_b),
+                   operations_bound_ms=mean(stamp_o)),
+        edt=dict(ms=mean(edt_ms), plain_ms=mean(edt_twin_ms),
+                 bytes_bound_ms=mean(edt_b), operations_bound_ms=mean(edt_o),
+                 brute_force_steps_ms=edt_bounds_ms(g)[2]))
+
+
+def map_kernel_line(maps_path, name) -> dict:
+    """The `kernels` entry of a map-compiler kernel: its kernel launches on
+    the [maps] path (an EDT is two, its column and row passes) and its
+    times and bounds, means over the five towns' inputs (the EDT over its
+    three inputs a town; the stamp's time includes its table's upload)."""
+    k = maps_path[name]
+    b, o = k["bytes_bound_ms"], k["operations_bound_ms"]
+    return {
+        "name": {"stamp": "stamp_segments", "edt": "edt"}[name],
+        "route": "cuda",
+        "source": "torchdriveenv_tpu_torch/csrc/mapkit.cu",
+        "replaces": {"stamp": "csrc/mapkit.cpp:91",
+                     "edt": "csrc/mapkit.cpp:146"}[name],
+        "launches": maps_path["launches"][name],
+        "max_abs_err": maps_path["max_abs_err"][name],
+        "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations",
+        "library_ms": None,
+        "bytes_bound_ms": b, "operations_bound_ms": o,
+        **({"brute_force_steps_ms": k["brute_force_steps_ms"]}
+           if name == "edt" else {}),
+    }
+
+
+def _maps_fidelity(out_dir, shipped, mc) -> dict:
+    """The compiled bundles against the shipped ones: suites and background
+    bit-equal; maps within the stated tolerances (their inputs are the
+    bundles' float32 roundings of the reference's float64 data)."""
+    import numpy as np
+
+    for fn in ("suite_train_v1.npz", "suite_val_v1.npz", "background_v1.npz"):
+        got, want = np.load(os.path.join(out_dir, fn)), shipped(fn)
+        check(sorted(got.files) == sorted(want.files), f"[maps] {fn} keys")
+        for k in want.files:
+            check(got[k].dtype == want[k].dtype
+                  and np.array_equal(got[k], want[k]),
+                  f"[maps] {fn} {k} differs from the shipped file")
+    got, want = np.load(os.path.join(out_dir, "maps_v1.npz")), shipped(
+        "maps_v1.npz")
+    check(sorted(got.files) == sorted(want.files), "[maps] maps_v1 keys")
+    for k in want.files:
+        check(got[k].dtype == want[k].dtype and got[k].shape == want[k].shape,
+              f"[maps] maps_v1 {k}: {got[k].dtype} {got[k].shape}")
+    for k in ("scale", "seg_cell", "light_durations", "town_names",
+              "seg_cell_n", "light_mask", "light_phase"):
+        check(np.array_equal(got[k], want[k]), f"[maps] maps_v1 {k} differs")
+    out = {}
+    for k in ("sdf", "sdf_gx", "sdf_gy"):
+        out[f"{k}_share"] = float((got[k] != want[k]).mean())
+        check(out[k + "_share"] <= 1e-5, f"[maps] {k}: {out[k + '_share']}")
+    field, wfield = got["npc_field"], want["npc_field"]
+    out["npc_gradient_bytes_share"] = float(((field >> 16) != (wfield >> 16))
+                                            .mean())
+    check(out["npc_gradient_bytes_share"] <= 1e-5,
+          f"[maps] npc_field gradient bytes: {out['npc_gradient_bytes_share']}")
+
+    def wrapped(a, b):
+        return np.abs((a - b + np.pi) % (2 * np.pi) - np.pi)
+
+    for k, (a, b) in dict(
+            dir_angle=(got["dir_angle"], want["dir_angle"]),
+            npc_dir=((field & 0xFFFF).astype(np.uint16).view(np.float16),
+                     (wfield & 0xFFFF).astype(np.uint16).view(np.float16))
+    ).items():
+        diff = wrapped(a.astype(np.float64), b.astype(np.float64))
+        out[f"{k}_share_over_0.01"] = float((diff > 0.01).mean())
+        out[f"{k}_share_differing"] = float((a != b).mean())
+        check(out[f"{k}_share_over_0.01"] <= 1e-4,
+              f"[maps] {k}: {out[f'{k}_share_over_0.01']} over 0.01 rad")
+    out["origin_max_abs"] = float(np.abs(got["origin"] - want["origin"]).max())
+    check(out["origin_max_abs"] <= 1e-4, f"[maps] origin {out['origin_max_abs']}")
+    m = want["light_mask"]
+    out["stopline_max_abs"] = max(
+        float(np.abs(got[k][m] - want[k][m]).max(initial=0.0))
+        for k in ("stop_p0", "stop_p1", "stop_dir"))
+    check(out["stopline_max_abs"] <= 1e-4,
+          f"[maps] stoplines {out['stopline_max_abs']}")
+    # seg_data: every listed row of a cell within 2e-4 (max over its five
+    # fields) of some row of the same cell in the shipped file, both ways
+    worst = 0.0
+    n_cells = got["seg_cell_n"].reshape(-1)
+    a_all = torch.as_tensor(got["seg_data"][..., :5].reshape(
+        -1, mc.SEG_K, 5), device="cuda")
+    b_all = torch.as_tensor(want["seg_data"][..., :5].reshape(
+        -1, mc.SEG_K, 5), device="cuda")
+    for c in range(n_cells.shape[0]):
+        n = int(n_cells[c])
+        if n == 0:
+            continue
+        d = (a_all[c, :n, None] - b_all[c, None, :n]).abs().amax(-1)
+        worst = max(worst, float(d.amin(1).max()), float(d.amin(0).max()))
+    out["seg_data_row_match_max_abs"] = worst
+    check(worst <= 2e-4, f"[maps] seg_data rows {worst}")
+    log("[maps] compiled against the shipped bundles: suites and background "
+        "bit-equal; " + ", ".join(f"{k} {v:.3g}" for k, v in out.items()))
+    return out
 
 
 # The training recipes this script drives, as their YAML files parse
@@ -2287,6 +2658,8 @@ def main() -> int:
     compare("crowded batch, right-handed", crowd.town, crowd_prep,
             left_handed=False)
 
+    maps_path = maps_phase(assets, state, card)
+
     # ---- 3. the main path ----------------------------------------------
     cfg = EnvConfig()
     env = BatchedEnv(cfg, assets, N_ENVS, seed=3)
@@ -2371,10 +2744,12 @@ def main() -> int:
             "frame_segments_mean", "tile_segments_mean", "tile_segments_max",
             "tile_agents_mean", "tile_waypoints_mean", "tile_stoplines_mean",
             "tile_ego_share")},
-    }], "main_path": {"env_steps_per_s": steps_per_s, "timed_steps":
+    }] + [map_kernel_line(maps_path, name) for name in ("stamp", "edt")],
+        "main_path": {"env_steps_per_s": steps_per_s, "timed_steps":
                       TIMED_STEPS, "num_envs": N_ENVS, "obs_checksum": checksum,
                       "phases_ms": phases,
                       "nseg_mean": main_cmp["nseg_mean"]},
+        "maps_path": maps_path,
         "npc_path": npc, "gym_path": gym, "learner_path": learner,
         "train_path": trained, "tools_path": tools,
         "multi_path": multi}), flush=True)

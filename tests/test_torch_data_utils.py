@@ -39,25 +39,6 @@ def _bundled(suite):
     return np.load(os.path.join(ASSETS, f"suite_{suite}_v1.npz"))
 
 
-def _raw_suite(z):
-    """The waypoint-suite dict that compiles to the npz bundle ``z``."""
-    raw = dict(locations=[], waypoint_suite=[], car_sequence_suite=[],
-               scenarios=[])
-    for c in range(z["case_town"].shape[0]):
-        raw["locations"].append(tmc.TOWNS[int(z["case_town"][c])])
-        raw["waypoint_suite"].append(
-            z["waypoints"][c, :int(z["n_waypoints"][c])].tolist())
-        k = int(z["scen_mask"][c].sum())
-        raw["scenarios"].append(dict(
-            agent_states=z["scen_states"][c, :k].tolist(),
-            agent_attributes=z["scen_attrs"][c, :k].tolist(),
-            recurrent_states=None) if k else None)
-        seqs = {slot: z["replay_states"][c, slot, :int(m.sum())].tolist()
-                for slot, m in enumerate(z["replay_mask"][c]) if m.any()}
-        raw["car_sequence_suite"].append(seqs or None)
-    return raw
-
-
 def _assert_arrays_equal(got, want, where):
     for k in SUITE_FIELDS:
         g = getattr(got, k)
@@ -78,7 +59,7 @@ def test_compile_constants_match_jax():
 def test_waypoint_suite_yaml_matches_jax(tmp_path, suite):
     z = _bundled(suite)
     path = tmp_path / "suite.yml"
-    path.write_text(yaml.safe_dump(_raw_suite(z)))
+    path.write_text(yaml.safe_dump(tmc.suite_from_bundle(z)))
     jdata = jdu.load_waypoint_suite_data(str(path))
     tdata = tdu.load_waypoint_suite_data(str(path))
     assert dataclasses.asdict(tdata) == dataclasses.asdict(jdata)
@@ -164,7 +145,7 @@ def test_batched_env_runs_on_a_compiled_suite(tmp_path):
     their scenario agents) drives the env: episodes start on the route's
     first segment, and the scenario agents are placed."""
     z = _bundled("val")
-    raw = _raw_suite(z)
+    raw = tmc.suite_from_bundle(z)
     raw = {k: [v[0], v[3]] for k, v in raw.items()}
     raw["waypoint_suite"] = [w[::-1] for w in raw["waypoint_suite"]]
     path = tmp_path / "suite.yml"

@@ -43,10 +43,12 @@ def test_the_package_has_the_slice_modules():
                 "tools/__init__", "tools/distill_npc", "tools/bc_pretrain",
                 "tools/eval_checkpoints", "tools/profile_learner",
                 "tools/profile_step", "tools/diagnose_val",
-                "tools/audit_map_fidelity", "examples/__init__",
+                "tools/audit_map_fidelity", "maps/mapkit",
+                "tools/compile_assets", "examples/__init__",
                 "examples/evaluate_policy", "examples/rollout_example"):
         assert f"torchdriveenv_tpu_torch/{mod}.py" in rel, mod
-    for data in ("csrc/rasterizer.cu", "examples/train_gpu.sh",
+    for data in ("csrc/rasterizer.cu", "csrc/mapkit.cu",
+                 "examples/train_gpu.sh",
                  "assets/deliverable_sac_stage1_actor.npz",
                  "assets/npc_gru_v1.npz"):
         assert os.path.exists(os.path.join(ROOT, "torchdriveenv_tpu_torch",

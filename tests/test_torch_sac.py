@@ -110,6 +110,14 @@ def _batch(seed):
         is_demo=np.arange(B) % 2 == 0)
 
 
+def _torch_batch(seed):
+    """``_batch(seed)`` as torch tensors, with the rows' places in the batch
+    (``pos``) that ``buffer.sample`` returns beside them."""
+    batch = {k: torch.from_numpy(v) for k, v in _batch(seed).items()}
+    batch["pos"] = torch.arange(B)
+    return batch
+
+
 def _noise(key):
     """The draws ``jsac.SAC.update`` makes from ``key``."""
     k_next, k_pi = jax.random.split(key)
@@ -159,8 +167,7 @@ def _run_both(tree, cfg, n_updates=3, batch_seed=0):
         batch, key = _batch(batch_seed + u), jax.random.PRNGKey(10 + u)
         jstate, jm = jagent.update(
             jstate, {k: jnp.asarray(v) for k, v in batch.items()}, key)
-        tm = tagent.update({k: torch.from_numpy(v) for k, v in batch.items()},
-                           noise=_noise(key))
+        tm = tagent.update(_torch_batch(batch_seed + u), noise=_noise(key))
         yield u + 1, tagent, jstate, tm, jm
 
 
@@ -232,7 +239,7 @@ def test_gradients_are_taken_before_any_step():
     pre_actor = copy.deepcopy(tagent.state.actor)
     pre_critic = copy.deepcopy(tagent.state.critic)
     pre_target = copy.deepcopy(tagent.state.target_critic)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
+    batch = _torch_batch(0)
     key = jax.random.PRNGKey(10)
     n_next, n_pi = _noise(key)
     tagent.update(batch, noise=(n_next, n_pi))

@@ -68,6 +68,14 @@ def _batch(seed):
         is_demo=np.zeros(B, bool))
 
 
+def _torch_batch(seed):
+    """``_batch(seed)`` as torch tensors, with the rows' places in the batch
+    (``pos``) that ``buffer.sample`` returns beside them."""
+    batch = {k: torch.from_numpy(v) for k, v in _batch(seed).items()}
+    batch["pos"] = torch.arange(B)
+    return batch
+
+
 def _assert_states_close(tagent, jstate, where, param_atol=ATOL,
                          moment_atol=ATOL):
     want = convert.td3_state_to_torch(_tree_of(jstate), RES)
@@ -105,8 +113,7 @@ def test_four_updates_match_jax():
         jstate, jm = jupdate(
             jstate, {k: jnp.asarray(v) for k, v in batch.items()}, key)
         noise = torch.from_numpy(np.array(jax.random.normal(key, (B, 2))))
-        tm = tagent.update({k: torch.from_numpy(v) for k, v in batch.items()},
-                           noise=noise)
+        tm = tagent.update(_torch_batch(50 + u), noise=noise)
         assert sorted(tm) == sorted(jm) == sorted(ttd3.TD3.metric_names)
         for k in jm:
             np.testing.assert_allclose(
@@ -140,7 +147,7 @@ def test_the_actor_gradient_goes_through_the_stepped_critic():
     jagent, jstate, tagent = _both(**cfg)
     pre_actor = copy.deepcopy(tagent.state.actor)
     pre_critic = copy.deepcopy(tagent.state.critic)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(0).items()}
+    batch = _torch_batch(0)
     key = jax.random.PRNGKey(10)
     noise = torch.from_numpy(np.array(jax.random.normal(key, (B, 2))))
     tagent.update(batch, noise=noise)

@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-KERNELS = ("rasterizer",)
+KERNELS = ("rasterizer", "mapkit")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -87,4 +87,21 @@ def load_rasterizer() -> ctypes.CDLL:
     lib.tde_render_obs.restype = ci
     lib.tde_error_string.argtypes = [ci]
     lib.tde_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_mapkit() -> ctypes.CDLL:
+    """The map compiler's library (``tde_stamp_segments``, ``tde_edt``),
+    built at first use."""
+    build(("mapkit",))
+    lib = ctypes.CDLL(library_path("mapkit"))
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.tde_stamp_segments.argtypes = ([ci, cd, cd, cd] + [vp] * 3 + [ci]
+                                       + [vp] * 4)
+    lib.tde_stamp_segments.restype = ci
+    lib.tde_edt.argtypes = [ci] + [vp] * 6
+    lib.tde_edt.restype = ci
+    lib.tde_mapkit_error_string.argtypes = [ci]
+    lib.tde_mapkit_error_string.restype = ctypes.c_char_p
     return lib

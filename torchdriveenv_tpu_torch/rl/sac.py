@@ -178,8 +178,9 @@ class SAC:
         it), in place. ``noise=(n_next, n_pi)``: the standard-normal draws
         of the two ``sample_squashed`` calls, each (B, A) over the global
         batch; drawn from ``generator`` in that order when absent, and
-        indexed by ``batch["pos"]`` where the batch has it. Returns the
-        seven metrics as 0-d tensors on the agent's device.
+        indexed by ``batch["pos"]``, the rows' places in the global batch
+        (``arange(B)`` in one process). Returns the seven metrics as 0-d
+        tensors on the agent's device.
 
         With a ``mesh`` the batch holds this rank's rows of a global batch
         of ``batch_size``: the losses are this rank's sums over the global
@@ -192,8 +193,7 @@ class SAC:
             noise = [torch.randn(shape, generator=generator,
                                  device=batch["action"].device)
                      for _ in range(2)]
-        pos = batch.get("pos")
-        n_next, n_pi = noise if pos is None else (x[pos] for x in noise)
+        n_next, n_pi = (x[batch["pos"]] for x in noise)
         fixed = cfg.fixed_alpha is not None
         # torch.full fills on the device; torch.tensor would upload, which
         # synchronizes the host with the device at every update

@@ -153,8 +153,8 @@ class TD3:
         """One gradient update on ``batch`` (as ``buffer.sample`` returns
         it), in place. ``noise``: the standard-normal draw of the target
         policy smoothing, (B, A) over the global batch; drawn from
-        ``generator`` when absent, and indexed by ``batch["pos"]`` where the
-        batch has it. The actor and both targets move only on
+        ``generator`` when absent, and indexed by ``batch["pos"]``, the rows'
+        places in the global batch (``arange(B)`` in one process). The actor and both targets move only on
         updates whose number (from 0) divides by ``policy_delay``;
         ``actor_loss`` reports 0 on the others. Returns the three metrics as
         0-d tensors on the agent's device.
@@ -172,9 +172,7 @@ class TD3:
                 noise = torch.randn((b,) + action.shape[1:],
                                     generator=generator, device=action.device,
                                     dtype=action.dtype)
-            if "pos" in batch:
-                noise = noise[batch["pos"]]
-            noise = torch.clamp(cfg.target_noise * noise, -cfg.noise_clip,
+            noise = torch.clamp(cfg.target_noise * noise[batch["pos"]], -cfg.noise_clip,
                                 cfg.noise_clip)
             next_a = torch.clamp(st.target_actor(batch["next_obs"]) + noise,
                                  -1.0, 1.0)
