@@ -208,6 +208,36 @@ STAMP_OPS = 20
 EDT_LINEAR_OPS = 40
 MAPS_KERNEL_REPS = 20
 MAPS_CPU_TOWN = "Town01"     # the town compiled on the CPU too (fewest segments)
+MAP_KERNELS = ("stamp_kernel", "edt_columns", "edt_rows")
+
+
+def kernel_device_us(fn, reps):
+    """Mean device time (us) of each map kernel per launch over `reps` calls
+    of fn, from torch.profiler's CUDA activity (the kernels alone: uploads
+    and allocations are other events); {} where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0))
+        for name in MAP_KERNELS:
+            if name in e.key and e.count and us:
+                out[name] = us / e.count
+    return out
+
+
+def device_ms(us, names):
+    """The summed device time (ms) of the kernels `names` of one call, from
+    kernel_device_us's result; None where the profiler recorded one not."""
+    if not all(n in us for n in names):
+        return None
+    return sum(us[n] for n in names) / 1e3
 
 
 def stamp_bounds_ms(grid, win, n):
@@ -275,12 +305,18 @@ def maps_phase(assets, state, card) -> dict:
                 torch.zeros((n, n), dtype=torch.float32, device=dev))
 
     def stamp_pair(n, origin, p0, p1, hw, label):
-        kern, twin = grids(n), grids(n)
+        """The kernel against the twin run on the CPU, where its arithmetic
+        is mapkit.cpp's: torch's CUDA division by a Python scalar multiplies
+        by the reciprocal (one bit lost), so the twin run on the card can
+        differ where a pixel centre lies exactly on a segment."""
+        kern = grids(n)
+        ref = tuple(t.cpu() for t in grids(n))
         mk.stamp_segments_cuda(n, origin, mc.SCALE, p0, p1, hw, *kern)
-        mk.stamp_segments_torch(n, origin, mc.SCALE, p0, p1, hw, *twin)
+        mk.stamp_segments_torch(n, origin, mc.SCALE, p0, p1, hw, *ref)
         torch.cuda.synchronize()
         for name, a, b in zip(("drivable", "dir_best_d", "dir_angle"), kern,
-                              twin):
+                              ref):
+            a = a.cpu()
             check(torch.equal(a, b), f"[maps] stamp kernel != twin on {label}: "
                   f"{name} differs at {int((a != b).sum())} pixels")
             err["stamp"] = max(err["stamp"],
@@ -301,6 +337,7 @@ def maps_phase(assets, state, card) -> dict:
 
     # ---- (1) kernels against twins: the five towns --------------------
     by_town, stamp_ms, stamp_twin_ms, edt_ms, edt_twin_ms = {}, [], [], [], []
+    stamp_dev_ms, edt_dev_ms = [], []
     stamp_b, stamp_o, edt_b, edt_o = [], [], [], []
     for town in mc.TOWNS:
         segs, pts, _ = mc.town_content(suites, background, town)
@@ -309,39 +346,58 @@ def maps_phase(assets, state, card) -> dict:
         drv, best, ang = stamp_pair(g, origin, p0, p1, hw, town)
         table = mk.segment_table(g, origin, mc.SCALE, p0, p1, hw)
         work = grids()
-        k_ms = cuda_ms(lambda: mk.stamp_segments_cuda(
-            g, origin, mc.SCALE, p0, p1, hw, *work, table=table),
-            MAPS_KERNEL_REPS)
+
+        def stamp_call():
+            mk.stamp_segments_cuda(g, origin, mc.SCALE, p0, p1, hw, *work,
+                                   table=table)
+
+        k_ms = cuda_ms(stamp_call, MAPS_KERNEL_REPS)
+        dev_us = {"stamp": kernel_device_us(stamp_call, MAPS_KERNEL_REPS)}
+        kd_ms = device_ms(dev_us["stamp"], ("stamp_kernel",))
         t_ms = cuda_ms(lambda: mk.stamp_segments_torch(
             g, origin, mc.SCALE, p0, p1, hw, *grids()), 1)
         b_ms, o_ms, pairs = stamp_bounds_ms(g, table[1], len(hw))
         sources = {"offroad": (drv == 0).to(torch.uint8), "road": drv,
                    "covered": (best < 1e8).to(torch.uint8)}
-        e_ms, et_ms = {}, {}
+        e_ms, ed_ms, et_ms = {}, {}, {}
         for name, src in sources.items():
             edt_pair(src, f"{town} {name}")
             e_ms[name] = cuda_ms(lambda: mk.edt_cuda(src), MAPS_KERNEL_REPS)
+            dev_us[name] = kernel_device_us(lambda: mk.edt_cuda(src),
+                                            MAPS_KERNEL_REPS)
+            ed_ms[name] = device_ms(dev_us[name], ("edt_columns", "edt_rows"))
             et_ms[name] = cuda_ms(lambda: mk.edt_torch(src), 2)
         eb_ms, eo_ms, brute_ms = edt_bounds_ms(g)
         by_town[town] = dict(
             segments=len(hw), window_pairs=pairs,
             drivable_share=float(drv.float().mean()),
-            stamp_ms=k_ms, stamp_twin_ms=t_ms, stamp_bytes_bound_ms=b_ms,
-            stamp_operations_bound_ms=o_ms, edt_ms=e_ms, edt_twin_ms=et_ms)
+            stamp_ms=k_ms, stamp_device_ms=kd_ms, stamp_twin_ms=t_ms,
+            stamp_bytes_bound_ms=b_ms, stamp_operations_bound_ms=o_ms,
+            edt_ms=e_ms, edt_device_ms=ed_ms, edt_twin_ms=et_ms,
+            device_us=dev_us)
         stamp_ms.append(k_ms), stamp_twin_ms.append(t_ms)
+        stamp_dev_ms.append(kd_ms)
         stamp_b.append(b_ms), stamp_o.append(o_ms)
         edt_ms += list(e_ms.values())
+        edt_dev_ms += list(ed_ms.values())
         edt_twin_ms += list(et_ms.values())
         edt_b.append(eb_ms), edt_o.append(eo_ms)
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
         log(f"[maps] {town}: {len(hw)} segments, {pairs} (pixel, segment) "
             f"pairs, drivable {by_town[town]['drivable_share']:.4f}; stamp "
-            f"kernel {k_ms:.4f} ms, twin {t_ms:.1f} ms, bounds: bytes "
-            f"{b_ms:.4f} ms, operations {o_ms:.4f} ms; edt kernel "
+            f"{k_ms:.4f} ms a call with its table's packing and upload, "
+            f"the kernel's device time {fmt(kd_ms)} ms, twin {t_ms:.1f} ms, "
+            f"bounds: bytes {b_ms:.4f} ms, operations {o_ms:.4f} ms; edt "
             + ", ".join(f"{k} {v:.4f}" for k, v in e_ms.items())
+            + " ms a call, the two kernels' device time "
+            + ", ".join(f"{k} {fmt(v)}" for k, v in ed_ms.items())
             + " ms, twin " + ", ".join(f"{k} {v:.2f}" for k, v in et_ms.items())
             + f" ms, bounds: bytes {eb_ms:.4f} ms, operations {eo_ms:.5f} ms "
-            f"(the brute force's steps {brute_ms:.3f} ms); kernel = twin "
-            f"[{card}]")
+            f"(the brute force's steps {brute_ms:.3f} ms); kernel = twin; "
+            "device us per launch (torch.profiler): "
+            + "; ".join(f"{k} " + ", ".join(f"{n} {v:.1f}" for n, v in d.items())
+                        for k, d in dev_us.items())
+            + f" [{card}]")
         del drv, best, ang, work, sources
 
     # ---- (1b) edge grids ------------------------------------------------
@@ -372,9 +428,44 @@ def maps_phase(assets, state, card) -> dict:
     stamp_pair(g, origin, p0[:0], p1[:0], hw[:0], "no segments")
     stamp_pair(1, np.array([0.0, 0.0]), np.array([[0.1, 0.1]]),
                np.array([[0.4, 0.2]]), np.array([0.5]), "a one-pixel grid")
+    # ties: the one above, then the smallest column, must win as the twin's
+    ii, jj = torch.meshgrid(torch.arange(g, device=dev),
+                            torch.arange(g, device=dev), indexing="ij")
+    ties = {
+        "a checkerboard": (ii + jj) % 2 == 0,
+        "sources on every 3rd column": jj % 3 == 0,
+        "sources on every 2nd row": ii % 2 == 0,
+        "one diagonal line": ii == jj,
+        "two sources equidistant from a band (a row and a column)":
+            ((ii == 300) & ((jj == 100) | (jj == 700)))
+            | ((jj == 611) & ((ii == 20) | (ii == 980))),
+    }
+    for label, m in ties.items():
+        edt_pair(m.to(torch.uint8), f"1024 x 1024, {label}")
+    del ii, jj, ties
+    edt_pair((torch.rand((2048, 2048), generator=gen, device=dev) < 0.01)
+             .to(torch.uint8), "random 2048 x 2048, p 0.01")
+    big = torch.zeros((mk.MAX_EDT_GRID,) * 2, dtype=torch.uint8, device=dev)
+    big[-1, -1] = 1
+    big_ms = cuda_ms(lambda: mk.edt_cuda(big), 2)
+    edt_pair(big, f"{mk.MAX_EDT_GRID} x {mk.MAX_EDT_GRID}, one source in a "
+             "corner")
+    del big
+    torch.cuda.empty_cache()
+    p0, p1, hw = mk.one_tile_segments(3000)
+    stamp_pair(g, origin, p0, p1, hw, "3000 segments through one tile, "
+               "equal distances")
+    stamp_pair(1000, origin, p0, p1, hw, "the same on a 1000 x 1000 grid")
+    p0, p1, hw = mk.tile_border_segments(rng, 600, g // mk.STAMP_TILE)
+    stamp_pair(g, np.array([0.0, 0.0]), p0, p1, hw,
+               "windows ending on tile borders")
     log("[maps] kernels = twins on the edge grids (empty, all source, one "
         "pixel, one source, random 1000^2; zero-length and outside segments, "
-        "1000^2, none, one pixel)")
+        "1000^2, none, one pixel; EDT ties: checkerboard, every 3rd column, "
+        "every 2nd row, a diagonal, equidistant pairs; random 2048^2; "
+        f"{mk.MAX_EDT_GRID}^2 with one source ({big_ms:.3f} ms a transform); "
+        "3000 segments through one tile, on 1024^2 and 1000^2; windows on "
+        "tile borders)")
 
     # ---- (2) compile_assets on the card ---------------------------------
     tmp = tempfile.mkdtemp(prefix="tde_maps_")
@@ -433,6 +524,10 @@ def maps_phase(assets, state, card) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
     mean = lambda xs: sum(xs) / len(xs)   # noqa: E731
+
+    def mean_of(xs):
+        """The mean of device times, None where one was not measured."""
+        return None if None in xs else mean(xs)
     phase_s = time.perf_counter() - t_phase
     log(f"[maps] phase {phase_s:.1f} s")
     return dict(
@@ -440,10 +535,13 @@ def maps_phase(assets, state, card) -> dict:
         cpu_town=MAPS_CPU_TOWN, cpu_town_s=cpu_s, frames_pixel_share=px_share,
         fidelity=fidelity, phase_s=phase_s,
         max_abs_err=err,
+        edt_max_grid_ms=big_ms,
         stamp=dict(ms=mean(stamp_ms), plain_ms=mean(stamp_twin_ms),
+                   device_ms=mean_of(stamp_dev_ms),
                    bytes_bound_ms=mean(stamp_b),
                    operations_bound_ms=mean(stamp_o)),
         edt=dict(ms=mean(edt_ms), plain_ms=mean(edt_twin_ms),
+                 device_ms=mean_of(edt_dev_ms),
                  bytes_bound_ms=mean(edt_b), operations_bound_ms=mean(edt_o),
                  brute_force_steps_ms=edt_bounds_ms(g)[2]))
 
@@ -452,7 +550,9 @@ def map_kernel_line(maps_path, name) -> dict:
     """The `kernels` entry of a map-compiler kernel: its kernel launches on
     the [maps] path (an EDT is two, its column and row passes) and its
     times and bounds, means over the five towns' inputs (the EDT over its
-    three inputs a town; the stamp's time includes its table's upload)."""
+    three inputs a town; the stamp's time includes its table's packing and
+    upload; `device_ms` is the kernels' device time alone, from
+    torch.profiler)."""
     k = maps_path[name]
     b, o = k["bytes_bound_ms"], k["operations_bound_ms"]
     return {
@@ -467,6 +567,7 @@ def map_kernel_line(maps_path, name) -> dict:
         "bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations",
         "library_ms": None,
         "bytes_bound_ms": b, "operations_bound_ms": o,
+        "device_ms": k["device_ms"],
         **({"brute_force_steps_ms": k["brute_force_steps_ms"]}
            if name == "edt" else {}),
     }

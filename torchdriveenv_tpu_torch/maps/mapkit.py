@@ -9,12 +9,16 @@ Euclidean distance transform with the flat index of the nearest source.
 ``sdf`` (two EDTs and a select) and ``propagate_dir`` (one EDT and a gather)
 are plain torch on their outputs.
 
-On a CUDA tensor each dispatcher launches the hand-written kernel of
+On a CUDA tensor each dispatcher launches the hand-written kernels of
 ``csrc/mapkit.cu`` and counts its kernel launches
-(``stamp_segments_cuda.launches``, one a stamp; ``edt_cuda.launches``, two
-an EDT: its column pass and its row pass). On a CPU tensor it runs the
-plain twin (``stamp_segments_torch``, ``edt_torch``), written the way the
-kernel computes. Nothing falls back.
+(``stamp_segments_cuda.launches``, one a stamp: each 16 x 16 tile walks
+only the segments whose windows meet it; ``edt_cuda.launches``, two an
+EDT: the column pass's sweeps, then the row pass's exact lower envelopes).
+On a CPU tensor it runs the plain twin
+(``stamp_segments_torch``, ``edt_torch``), written the way the kernel
+computes. Nothing falls back. ``stamp_tile_hits_torch`` is the stamp
+kernel's tile predicate in plain torch: change it together with the
+``.cu``.
 
 Bit-equality of kernel and twin:
   - stamp: the per-segment table (double endpoints, the clamped pixel
@@ -22,9 +26,10 @@ Bit-equality of kernel and twin:
     (``segment_table``), the arithmetic of ``csrc/mapkit.cpp``; the per-pixel
     arithmetic is the same double expression in both, in segment order, and
     the source is built with ``--fmad=false``.
-  - edt: squared distances are integers (< 2^31); the tie rule is pinned:
-    the smallest source row in the column pass, then the smallest column in
-    the row pass.
+  - edt: squared distances are integers (< 2^31), the kernel's envelope
+    compares its breakpoints as exact rationals; the tie rule is pinned:
+    the smaller source row in the column pass (the one above), then the
+    smallest column in the row pass.
 Pixel (i, j) is the world point origin + (i + 0.5, j + 0.5) * scale: i runs
 along x, j along y, row-major (i * G + j).
 """
@@ -43,6 +48,7 @@ NO_SOURCE = 1 << 30       # squared distance of a line without a source
 NO_SOURCE_DIST = 1e20     # mapkit.cpp's kInf: distance sqrt(1e20) without one
 EDT_CHUNK = 16            # rows per step of the twin's row pass
 MAX_EDT_GRID = 8192       # the kernel's squared distances stay below 2^31
+STAMP_TILE = 16           # pixels per side of a stamp kernel block
 
 
 def ieee_sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -114,6 +120,51 @@ def _check_grids(grid, drivable, dir_best_d, dir_angle):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def stamp_tile_hits_torch(grid: int, win) -> torch.Tensor:
+    """The stamp kernel's tile predicate: (tiles, tiles, n) bool, True
+    where segment s's non-empty clamped window ``win[s, :4]`` ([i0, j0, i1,
+    j1), from ``segment_table``) meets tile (ti, tj), the pixels
+    [16 ti, 16 ti + 16) x [16 tj, 16 tj + 16). A tile's list is its True
+    entries in input order. Nothing on the GPU path calls this function."""
+    w = torch.as_tensor(np.asarray(win)[:, :4], dtype=torch.int64)
+    i0, j0, i1, j1 = w.unbind(1)
+    lo = torch.arange(0, grid, STAMP_TILE, dtype=torch.int64)[:, None]
+    hi = lo + STAMP_TILE
+    rows = (i0 < hi) & (i1 > lo) & (i0 < i1)          # (tiles, n)
+    cols = (j0 < hi) & (j1 > lo) & (j0 < j1)
+    return rows[:, None, :] & cols[None, :, :]
+
+
+def one_tile_segments(n: int):
+    """An edge case of the stamp's order rule, for checks: n short segments
+    (p0, p1, halfwidth) on one line through one tile, every other one
+    reversed, shifted along the line by whole pixels at 0.5 m a pixel.
+    Where they overlap their distances are equal, so input order decides
+    ``dir_angle``."""
+    a = np.tile([[-25.0, -26.0]], (n, 1))
+    b = np.tile([[-21.0, -26.0]], (n, 1))
+    a[1::2], b[1::2] = b[1::2].copy(), a[1::2].copy()
+    shift = (np.arange(n) % 5)[:, None] * np.array([[0.5, 0.0]])
+    return a + shift, b + shift, np.full(n, 1.5)
+
+
+def tile_border_segments(rng: np.random.Generator, n: int, tiles: int):
+    """An edge case of the stamp's tile predicate, for checks: n segments
+    (p0, p1, halfwidth) whose clamped windows (origin 0, 0.5 m a pixel,
+    half width 1 m) lie in the first ``tiles`` tiles and end on tile
+    borders: a low end of 8 a + 1.5 m gives i0 = 16 a, a high end of
+    8 b - 2 m gives i1 = 16 b (half a metre off: one pixel off the
+    border)."""
+    lo = rng.integers(0, tiles - 1, (n, 2))
+    hi = lo + rng.integers(1, 3, (n, 2))
+    off = rng.choice([-0.5, 0.0, 0.0, 0.5], (n, 2))
+    p0 = 8.0 * lo + 1.5 + off
+    p1 = 8.0 * hi - 2.0 - off[:, ::-1]
+    flip = rng.random(n) < 0.5
+    p0[flip], p1[flip] = p1[flip].copy(), p0[flip].copy()
+    return p0, p1, np.full(n, 1.0)
+
+
 def stamp_segments_torch(grid: int, origin, scale: float, p0, p1, halfwidth,
                          drivable: torch.Tensor, dir_best_d: torch.Tensor,
                          dir_angle: torch.Tensor) -> None:
@@ -149,12 +200,27 @@ def stamp_segments_torch(grid: int, origin, scale: float, p0, p1, halfwidth,
             dir_angle[i0:i1, j0:j1][closer] = float(ang[s])
 
 
+def _packed_table(geom, win, ang) -> torch.Tensor:
+    """The segment table as ``tde_stamp_segments`` reads it, in pinned
+    host memory: 72 bytes a segment, win (n, 4) int32 at 0, geom (n, 6)
+    float64 at 16 n, ang (n,) float32 at 64 n, has_dir (n,) int32 at 68 n."""
+    n = geom.shape[0]
+    host = torch.empty(max(72 * n, 16), dtype=torch.uint8, pin_memory=True)
+    buf = host.numpy()
+    buf[:16 * n].view(np.int32)[:] = win[:, :4].reshape(-1)
+    buf[16 * n:64 * n].view(np.float64)[:] = geom.reshape(-1)
+    buf[64 * n:68 * n].view(np.float32)[:] = ang
+    buf[68 * n:72 * n].view(np.int32)[:] = win[:, 4]
+    return host
+
+
 def stamp_segments_cuda(grid: int, origin, scale: float, p0, p1, halfwidth,
                         drivable: torch.Tensor, dir_best_d: torch.Tensor,
                         dir_angle: torch.Tensor, table=None) -> None:
     """The stamp on the card, in place: the segment table (``table``, else
-    ``segment_table`` of the arguments) uploaded, then the kernel
-    (``tde_stamp_segments``) launched on the current stream and counted
+    ``segment_table`` of the arguments) packed in pinned memory and
+    uploaded in one copy on the current stream, then the kernel
+    (``tde_stamp_segments``) launched on that stream and counted
     (``stamp_segments_cuda.launches``). Raises if the launch is refused."""
     _check_grids(grid, drivable, dir_best_d, dir_angle)
     dev = drivable.device
@@ -164,14 +230,13 @@ def stamp_segments_cuda(grid: int, origin, scale: float, p0, p1, halfwidth,
     if table is None:
         table = segment_table(grid, origin, scale, p0, p1, halfwidth)
     geom, win, ang, ox, oy, sc = table
-    geom, win, ang = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                      for a in (geom, win, ang))
     lib = _build.load_mapkit()
     with torch.cuda.device(dev):
+        packed = _packed_table(geom, win, ang).to(dev, non_blocking=True)
         code = lib.tde_stamp_segments(
-            grid, ox, oy, sc, geom.data_ptr(), win.data_ptr(), ang.data_ptr(),
-            geom.shape[0], drivable.data_ptr(), dir_best_d.data_ptr(),
-            dir_angle.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            grid, ox, oy, sc, packed.data_ptr(), geom.shape[0],
+            drivable.data_ptr(), dir_best_d.data_ptr(), dir_angle.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         raise RuntimeError("tde_stamp_segments launch failed: "
                            + lib.tde_mapkit_error_string(code).decode())
@@ -246,9 +311,14 @@ def edt_torch(source: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def edt_cuda(source: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the EDT kernels (``tde_edt``: the column pass, then the row
-    pass) on the current stream and count both launches
-    (``edt_cuda.launches``). Raises if a launch is refused."""
+    """Launch the EDT kernels (``tde_edt``) on the current stream and count
+    both launches (``edt_cuda.launches``): ``edt_columns`` writes each
+    pixel's nearest source row in its column (two sweeps per column chunk,
+    the one above on a tie) into an int32 scratch grid, then ``edt_rows``
+    builds the exact lower envelopes of each row's 32 parts in integers,
+    side by side, and takes each pixel's least value over the parts it can
+    reach (binary searches), the smallest column on a tie, with its
+    distance and index. Raises if a launch is refused."""
     g = _check_source(source)
     if source.device.type != "cuda":
         raise ValueError("edt_cuda takes a CUDA tensor")
@@ -256,15 +326,13 @@ def edt_cuda(source: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"edt_cuda takes grids of 1..{MAX_EDT_GRID}, got {g}")
     src = source.to(torch.uint8).contiguous()
     dev = src.device
-    g1 = torch.empty((g, g), dtype=torch.int32, device=dev)
     src_row = torch.empty((g, g), dtype=torch.int32, device=dev)
     dist = torch.empty((g, g), dtype=torch.float32, device=dev)
     idx = torch.empty((g, g), dtype=torch.int32, device=dev)
     lib = _build.load_mapkit()
     with torch.cuda.device(dev):
-        code = lib.tde_edt(g, src.data_ptr(), g1.data_ptr(),
-                           src_row.data_ptr(), dist.data_ptr(),
-                           idx.data_ptr(),
+        code = lib.tde_edt(g, src.data_ptr(), src_row.data_ptr(),
+                           dist.data_ptr(), idx.data_ptr(),
                            torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         raise RuntimeError("tde_edt launch failed: "

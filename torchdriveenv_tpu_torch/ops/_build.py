@@ -97,10 +97,9 @@ def load_mapkit() -> ctypes.CDLL:
     build(("mapkit",))
     lib = ctypes.CDLL(library_path("mapkit"))
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.tde_stamp_segments.argtypes = ([ci, cd, cd, cd] + [vp] * 3 + [ci]
-                                       + [vp] * 4)
+    lib.tde_stamp_segments.argtypes = [ci, cd, cd, cd, vp, ci] + [vp] * 4
     lib.tde_stamp_segments.restype = ci
-    lib.tde_edt.argtypes = [ci] + [vp] * 6
+    lib.tde_edt.argtypes = [ci] + [vp] * 5
     lib.tde_edt.restype = ci
     lib.tde_mapkit_error_string.argtypes = [ci]
     lib.tde_mapkit_error_string.restype = ctypes.c_char_p
