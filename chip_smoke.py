@@ -18,6 +18,29 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              the ego); time the kernel and the twin, and print them beside
              both bounds and the number of segments that survive the
              kernel's culls;
+  2a. parity the card's correctness gate. (a) The JAX package's own outputs
+             (torchdriveenv_tpu_torch/assets/jax_reference_v1.npz) replayed
+             on the card by utils/reference.py: the 15 golden scripts of 60
+             ego-only steps (no env may flip), the resets of 8 traffic envs
+             in route, policy and ego-only mode, 10 steps of them in route
+             and policy mode (at most 1 flipped env), a pooled reset; floats
+             at atol 1e-4 / rtol 1e-5, the GRU's state at 1e-5, ints and
+             bools exact. (b) maps.arrays.exact_div on the card equal to the
+             CPU for every divisor of the env step, the features, the
+             drivers and the CNN input. (c) 4096 train envs through
+             make_env_fns, the card rendering through the kernel, against
+             the CPU from the same draws (core.sample_reset_draws on the
+             CPU): a reset and 10 steps in each NPC mode, one pooled step
+             with 1280 envs done; flipped envs counted by the discrete
+             quantity that parted first (a flag, or an NPC decision: the
+             control-field cell, the fold side, the leader, the stopline),
+             at most 1e-3 of the envs in route mode and 2e-3 in policy
+             mode; 64 envs' frames a step rendered on the CPU, at most a
+             1e-3 share of pixels apart. (d) One update each of SAC (the
+             stage-1 recipe at batch 512), PPO, A2C and TD3, f32 with cuDNN
+             off, card against CPU from one state (2 CPU warm-up updates
+             first) with the same inputs: the CPU tests' Adam tolerance,
+             metrics at rtol 1e-4 / atol 1e-5;
   2b. maps  the offline map compiler (maps/compile.py, maps/mapkit.py,
              tools/compile_assets.py). The stamp and EDT kernels of
              csrc/mapkit.cu held against their plain twins on the card, bit
@@ -85,7 +108,8 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              npc_hidden carried. Every train step is timed with CUDA events
              (rollout / update split at the first agent.update) and must
              launch the rasterizer twice per env step; one PPO train step
-             must make no synchronizing call.
+             must make no synchronizing call. Then PPO train steps in turns
+             at torch's default precision (cuDNN TF32) and the port's f32.
   8. tools   the user workflow around training, in the deliverable's order
              (TRAINING.md:226-231). tools/bc_pretrain at the deliverable's
              width: 128 envs x 600 scripted steps = 76,800 frame stacks
@@ -1393,6 +1417,7 @@ def train_phase(card, have) -> dict:
     from torchdriveenv_tpu_torch.bench import profile_steps
     from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
     from torchdriveenv_tpu_torch.rl import train as train_mod
+    from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
     if have["yaml"]:            # the files themselves give the same configs
         for path, raw in RECIPES.items():
@@ -1530,6 +1555,25 @@ def train_phase(card, have) -> dict:
         log(f"[train] one PPO train step with synchronizing calls reported: "
             f"{sum(where.values())}: {where}")
         check(not where, f"PPO: synchronizing calls in a train step: {where}")
+
+        # the CLI's precision against torch's default, which runs cuDNN's
+        # float32 convolutions in TF32: train steps of this carry in turns
+        # (default, f32, f32, default, default, f32, f32, default)
+        ab = {"cudnn_tf32": [], "f32": []}
+        for cudnn_tf32 in (True, False, False, True) * 2:
+            set_f32_precision(cudnn_tf32=cudnn_tf32)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            carry, _ = probe.train_fn(probe.assets, carry)
+            e1.record()
+            torch.cuda.synchronize()
+            ab["cudnn_tf32" if cudnn_tf32 else "f32"].append(
+                e0.elapsed_time(e1))
+        set_f32_precision()
+        log(f"[train] PPO train step, torch's default precision (cuDNN TF32) "
+            f"against the port's f32, in turns: {ab['cudnn_tf32']} ms "
+            f"against {ab['f32']} ms [{card}]")
         del carry, probe
 
         # resumed from full_latest: one more train step of the same run
@@ -1561,6 +1605,7 @@ def train_phase(card, have) -> dict:
         / (sum(r["ms"] for r in steady) * 1e-3),
         rasterizer_launches_per_train_step=2 * n_steps,
         synchronizing_calls_in_a_train_step=where,
+        precision_in_turns_ms=ab,
         traced_step=dict(window_ms=prof["window_s"] * 1e3,
                          device_busy_ms=prof["device_busy_s"] * 1e3,
                          device_idle_share=prof["device_idle_share"],
@@ -2445,10 +2490,10 @@ def multi_worker(args) -> int:
     with RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT set."""
     import torch.distributed as dist
     from torchdriveenv_tpu_torch.parallel import mesh as pm
+    from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
     case, out_dir = args
     dev = "cuda" if torch.cuda.is_available() else "cpu"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_f32_precision()
     torch.backends.cudnn.deterministic = True
     res = (_multi_world1(pm, dev) if case == "world1"
            else _multi_world2(pm, dev))
@@ -2571,6 +2616,349 @@ def multi_phase(card) -> dict:
     return dict(world1=w1, world2=w2)
 
 
+# ---- the [parity] phase: the port held to the JAX reference on the card,
+# and the card to the CPU at the main path's width ---------------------------
+PARITY_STEPS = 10
+# envs whose frames the CPU renders at each step (the twin takes about a
+# minute for all 4096 envs on the machine's CPU); evenly spaced
+PARITY_FRAME_ENVS = 64
+# flipped envs allowed, as a share of the batch (stated before the first run)
+PARITY_FLIP_SHARE = {"route": 1e-3, "policy": 2e-3, "pooled": 1e-3}
+PARITY_PIXEL_SHARE = 1e-3
+PARITY_SEED = 5
+# the learners' sizes: SAC at the stage-1 recipe's batch, the others cut so
+# that the CPU's side stays well under 30 s
+PARITY_SAC_BATCH = RECIPE_BATCH
+PARITY_TD3_BATCH = 512
+PARITY_PPO = dict(n_steps=16, envs=128, batch_size=1024, n_epochs=1)
+PARITY_A2C = dict(n_steps=16, envs=64)
+METRIC_TOL = dict(rtol=1e-4, atol=1e-5)
+# CPU updates before the compared one: a fresh Adam's first step is +-lr on
+# every element, so a gradient within an ulp of zero flips by 2 lr
+PARITY_WARM_UPDATES = 2
+
+
+@contextlib.contextmanager
+def shared_draws(cpu_assets, seed):
+    """While active, every reset draws its randomness with
+    ``core.sample_reset_draws`` on the CPU, from one generator per device
+    seeded alike, and moves the draws to the envs' device: the card and the
+    CPU then start episodes from the same draws, and ``reset_from_draws``
+    runs on both (the generators are kept by assets object, so a CPU
+    rehearsal's two sides draw alike too)."""
+    from torchdriveenv_tpu_torch.env import core
+    plain = core.sample_reset_draws
+    gens = {}
+
+    def drawn(n, generator, assets, cfg, case=None):
+        g = gens.setdefault(id(assets), torch.Generator().manual_seed(seed))
+        d = plain(n, g, cpu_assets, cfg, None if case is None else case.cpu())
+        return core.ResetDraws(**{f.name: getattr(d, f.name).to(assets.device)
+                                  for f in dataclasses.fields(d)})
+
+    core.sample_reset_draws = drawn
+    try:
+        yield
+    finally:
+        core.sample_reset_draws = plain
+
+
+def _pooled_mask(n):
+    """The [multi] phase's uneven done mask: every second env of the first
+    half, every eighth of the second (1280 of 4096)."""
+    i = torch.arange(n)
+    return torch.where(i < n // 2, i % 2 == 0, i % 8 == 0)
+
+
+def env_parity(card_assets, cpu_assets, dev, n, card) -> dict:
+    """The card's env path against the CPU's at width ``n``: a reset and
+    PARITY_STEPS steps in each NPC mode, then one pooled step with the
+    [multi] mask's envs at their last step, through make_env_fns with the
+    same draws and actions. The card renders every env through the kernel;
+    the CPU renders PARITY_FRAME_ENVS of them through the twin. Flips are
+    counted by env (utils/reference.py) and bounded by PARITY_FLIP_SHARE."""
+    from torchdriveenv_tpu_torch.config import EnvConfig
+    from torchdriveenv_tpu_torch.env.batched import _obs_batched, make_env_fns
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    from torchdriveenv_tpu_torch.utils import reference as ref
+    import numpy as np
+
+    rows = torch.arange(0, n, max(n // PARITY_FRAME_ENVS, 1))
+    rng = np.random.default_rng(PARITY_SEED)
+    acts = torch.from_numpy(rng.uniform(
+        (-1.0, -0.3), (1.0, 0.3), (PARITY_STEPS, n, 2)).astype(np.float32))
+    out, cpu_s = {}, 0.0
+    for mode in ("route", "policy", "pooled"):
+        cfg = EnvConfig(npc_mode="policy" if mode == "policy" else "route")
+        steps = 1 if mode == "pooled" else PARITY_STEPS
+        tr = ref.FlipTracker(envs=n, bound=int(PARITY_FLIP_SHARE[mode] * n))
+        pixels = []
+
+        def frames(obs_card, state_cpu):
+            """Pixels apart in the sampled envs that have not flipped."""
+            nonlocal cpu_s
+            keep = rows[~tr.flipped[rows]]
+            t0 = time.perf_counter()
+            twin = _obs_batched(cfg, cpu_assets, state_cpu.take(keep))
+            cpu_s += time.perf_counter() - t0
+            apart = int((obs_card[keep.to(obs_card.device)].cpu() != twin).sum())
+            pixels.append(apart / max(twin.numel(), 1))
+
+        with shared_draws(cpu_assets, PARITY_SEED + len(out)):
+            reset_d, step_d = make_env_fns(cfg, card_assets, render=True)
+            reset_c, step_c = make_env_fns(cfg, cpu_assets, render=False)
+            g_d = torch.Generator(device=dev)
+            g_c = torch.Generator()
+            _sync(dev)
+            rc.render_obs_cuda.launches = 0
+            st_d, obs_d = reset_d(g_d, n)
+            t0 = time.perf_counter()
+            st_c, _ = reset_c(g_c, n)
+            cpu_s += time.perf_counter() - t0
+            if mode == "pooled":
+                last = torch.where(_pooled_mask(n),
+                                   cfg.max_environment_steps - 1,
+                                   0).to(torch.int32)
+                st_d = st_d.replace(step_idx=last.to(dev))
+                st_c = st_c.replace(step_idx=last)
+            tr.update({f"state/{k}": getattr(st_d, k) for k in st_c._fields()},
+                      {f"state/{k}": getattr(st_c, k) for k in st_c._fields()})
+            frames(obs_d, st_c)
+            done = 0
+            for t in range(steps):
+                dec_d = ref.npc_decisions(cfg, card_assets.maps, st_d)
+                dec_c = ref.npc_decisions(cfg, cpu_assets.maps, st_c)
+                a = acts[t]
+                o_d = step_d(st_d, a.to(dev), g_d)
+                t0 = time.perf_counter()
+                o_c = step_c(st_c, a, g_c)
+                cpu_s += time.perf_counter() - t0
+                tr.update(dict(ref.step_outputs(
+                    o_d.state, o_d.reward, o_d.terminated, o_d.truncated,
+                    o_d.info), **dec_d),
+                    dict(ref.step_outputs(
+                        o_c.state, o_c.reward, o_c.terminated, o_c.truncated,
+                        o_c.info), **dec_c))
+                frames(o_d.obs, o_c.state)
+                done += int((o_c.terminated | o_c.truncated).sum())
+                st_d, st_c = o_d.state, o_c.state
+            _sync(dev)
+            launches = rc.render_obs_cuda.launches
+        res = dict(tr.result(), mode=mode, pixel_share_max=max(pixels),
+                   launches=launches, done=done, frame_envs=int(rows.numel()))
+        res["ok"] = (res["ok"] and res["pixel_share_max"] <= PARITY_PIXEL_SHARE
+                     and bool(torch.isfinite(st_d.agent_states).all()))
+        log(f"[parity] env {mode}: {n} envs x {steps} steps, card against "
+            f"the CPU: largest error {res['max_err']:.3g} "
+            f"({res['max_err_name']}), flipped envs {res['flipped_envs']} "
+            f"(bound {res['flip_bound']}; first flipped by "
+            f"{res['flips_by'] or '-'}), done {done}, frames of "
+            f"{res['frame_envs']} envs a step: largest share of pixels apart "
+            f"{res['pixel_share_max']:.3g}, rasterizer launches {launches}"
+            + (f"; first float fault: {res['float_fail']}"
+               if res["float_fail"] else "") + f" [{card}]")
+        check(res["ok"], f"[parity] env {mode} out of bounds: {res}")
+        if torch.device(dev).type == "cuda":
+            check(launches == steps + 1,
+                  f"[parity] env {mode}: {launches} rasterizer launches in "
+                  f"{steps + 1} renders")
+        out[mode] = res
+    out["cpu_s"] = cpu_s
+    return out
+
+
+def _update_args(kind, rng, cpu_agent):
+    """The CPU tensors of one update from seeded numpy inputs: a replay
+    batch and its noise (SAC, TD3), or a time-major rollout on random
+    frames whose actions, log-probs and values are ``cpu_agent``'s own, as
+    the train step stores them, its last values and, for PPO, the
+    permutations. -> (args, kwargs) of ``update``."""
+    import numpy as np
+
+    def t(x):
+        return torch.from_numpy(x)
+
+    if kind in ("sac", "td3"):
+        b = PARITY_SAC_BATCH if kind == "sac" else PARITY_TD3_BATCH
+        batch = dict(
+            obs=rng.integers(0, 256, (b, 9, 64, 64), dtype=np.uint8),
+            next_obs=rng.integers(0, 256, (b, 9, 64, 64), dtype=np.uint8),
+            action=np.clip(rng.uniform(-1.3, 1.3, (b, 2)), -1, 1
+                           ).astype(np.float32),
+            reward=rng.normal(size=b).astype(np.float32),
+            discount_mask=(rng.random(b) > 0.25).astype(np.float32),
+            done=rng.random(b) < 0.25, is_demo=np.arange(b) % 2 == 0,
+            pos=np.arange(b))
+        noise = [t(rng.normal(size=(b, 2)).astype(np.float32))
+                 for _ in range(2 if kind == "sac" else 1)]
+        return ({k: t(v) for k, v in batch.items()},), dict(
+            noise=noise if kind == "sac" else noise[0])
+    size = PARITY_PPO if kind == "ppo" else PARITY_A2C
+    n_t, e = size["n_steps"], size["envs"]
+    obs = t(rng.integers(0, 256, (n_t, e, 9, 64, 64), dtype=np.uint8))
+    act, logp, value = cpu_agent.select_action(
+        obs.reshape((n_t * e,) + obs.shape[2:]),
+        noise=t(rng.normal(size=(n_t * e, 2)).astype(np.float32)))
+    rollout = dict(obs=obs, action=act.reshape(n_t, e, 2),
+                   log_prob=logp.reshape(n_t, e), value=value.reshape(n_t, e),
+                   reward=t(rng.normal(size=(n_t, e)).astype(np.float32)),
+                   done=t(rng.random((n_t, e)) < 0.2))
+    last_value = cpu_agent.value(t(rng.integers(0, 256, (e, 9, 64, 64),
+                                                dtype=np.uint8)))
+    kw = {}
+    if kind == "ppo":
+        kw["perms"] = t(np.stack([rng.permutation(n_t * e)
+                                  for _ in range(size["n_epochs"])]))
+    return (rollout, last_value), kw
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _learner_pair(kind, dev, rng):
+    """(CPU agent, card agent) in f32 in one state: a seeded init on the CPU
+    (SAC's actor: the shipped deliverable's, converted from the JAX tree),
+    warmed by PARITY_WARM_UPDATES updates on the CPU so that Adam's moments
+    are not zero, then copied to the card."""
+    from torchdriveenv_tpu_torch.models import load_actor
+    from torchdriveenv_tpu_torch.rl.a2c import A2C, A2CConfig
+    from torchdriveenv_tpu_torch.rl.ppo import PPO, PPOConfig
+    from torchdriveenv_tpu_torch.rl.sac import SAC, SACConfig
+    from torchdriveenv_tpu_torch.rl.td3 import TD3, TD3Config
+
+    def make():
+        if kind == "sac":
+            return SAC(SACConfig(**_SAC["algo_kwargs"]),
+                       compute_dtype=torch.float32)
+        if kind == "td3":
+            return TD3(TD3Config(batch_size=PARITY_TD3_BATCH),
+                       compute_dtype=torch.float32)
+        if kind == "ppo":
+            return PPO(PPOConfig(**{k: PARITY_PPO[k] for k in (
+                "n_steps", "batch_size", "n_epochs")}),
+                compute_dtype=torch.float32)
+        return A2C(A2CConfig(n_steps=PARITY_A2C["n_steps"]),
+                   compute_dtype=torch.float32)
+
+    cpu, card = make(), make()
+    cpu.init(seed=PARITY_SEED, device="cpu")
+    if kind == "sac":
+        cpu.state.actor.load_state_dict(load_actor(device="cpu").state_dict())
+    for _ in range(PARITY_WARM_UPDATES):
+        args, kw = _update_args(kind, rng, cpu)
+        cpu.update(*args, **kw)
+    card.init(seed=PARITY_SEED, device=dev)
+    card.load_state(cpu.export_state())
+    return cpu, card
+
+
+def learner_parity(dev, card) -> dict:
+    """One update of SAC, PPO, A2C and TD3 on the card against the CPU, in
+    f32 with cuDNN off (TF32 is off everywhere), from one state with the
+    same inputs: parameters, targets and Adam moments within the CPU tests'
+    Adam tolerance, metrics at rtol 1e-4 / atol 1e-5."""
+    import numpy as np
+    out, cpu_s = {}, 0.0
+    torch.backends.cudnn.enabled = False
+    try:
+        for i, kind in enumerate(("sac", "ppo", "a2c", "td3")):
+            rng = np.random.default_rng(PARITY_SEED + i)
+            cpu, card_agent = _learner_pair(kind, dev, rng)
+            args, kw = _update_args(kind, rng, cpu)
+            t0 = time.perf_counter()
+            m_cpu = cpu.update(*args, **kw)
+            cpu_s += time.perf_counter() - t0
+            m_card = card_agent.update(*_on(args, dev), **_on(kw, dev))
+            metrics = {side: {k: float(v) for k, v in m.items()}
+                       for side, m in (("cpu", m_cpu), ("card", m_card))}
+            cmp = adam_close(_on(card_agent.export_state(), "cpu"),
+                             cpu.export_state())
+            m_err = max(abs(metrics["card"][k] - metrics["cpu"][k])
+                        for k in metrics["cpu"])
+            m_ok = all(abs(metrics["card"][k] - v)
+                       <= METRIC_TOL["atol"] + METRIC_TOL["rtol"] * abs(v)
+                       for k, v in metrics["cpu"].items())
+            rows = "rows" if kind in ("sac", "td3") else "transitions"
+            size = (args[0]["obs"].shape[0] if kind in ("sac", "td3")
+                    else args[0]["reward"].numel())
+            res = dict(cmp, metrics_ok=m_ok, metrics_max_err=m_err,
+                       size=int(size), metrics=metrics)
+            res["ok"] = cmp["ok"] and m_ok
+            log(f"[parity] {kind.upper()} update, card against the CPU (f32, "
+                f"cuDNN off) on {size} {rows} after "
+                f"{PARITY_WARM_UPDATES} warm-up updates: bit-equal "
+                f"{cmp['bit_equal']}, worst {cmp['worst']} at "
+                f"{cmp['worst_over_tol']:.3g} of its tolerance, elements "
+                f"over {cmp['elements_over_tol']}; metrics largest error "
+                f"{m_err:.3g} [{card}]")
+            check(res["ok"], f"[parity] {kind} update out of bounds: {res}")
+            out[kind] = res
+    finally:
+        torch.backends.cudnn.enabled = True
+    out["cpu_s"] = cpu_s
+    return out
+
+
+def exact_div_parity(dev) -> dict:
+    """``maps.arrays.exact_div`` on ``dev`` against the CPU, bit for bit, for
+    every divisor of the port's env step, NPC features, scripted drivers
+    and CNN input; beside it, how many quotients ``x / divisor`` (torch's
+    own kernel) puts an ulp away."""
+    from torchdriveenv_tpu_torch.maps.arrays import exact_div
+    from torchdriveenv_tpu_torch.npc.route_follow import _IDM_DENOM
+    g = torch.Generator().manual_seed(PARITY_SEED)
+    x = torch.cat([torch.arange(256, dtype=torch.float32),
+                   (torch.rand(1 << 20, generator=g) - 0.5) * 160.0])
+    out = {}
+    for d in (0.1, 10.0, 22.0, 30.0, 40.0, 60.0, 255.0, _IDM_DENOM):
+        want = exact_div(x, d)
+        out[str(d)] = dict(
+            apart=int((exact_div(x.to(dev), d).cpu() != want).sum()),
+            plain_apart=int(((x.to(dev) / d).cpu() != want).sum()))
+    log(f"[parity] exact_div on {dev} against the CPU on {x.numel()} values "
+        f"a divisor: quotients apart {sum(v['apart'] for v in out.values())}"
+        f"; torch's x / d apart: " + ", ".join(
+            f"/{d} {v['plain_apart']}" for d, v in out.items()))
+    check(all(v["apart"] == 0 for v in out.values()),
+          f"[parity] exact_div on {dev} differs from the CPU: {out}")
+    return out
+
+
+def parity_phase(card, dev="cuda", n=N_ENVS) -> dict:
+    """Phase [parity]: (A/B) the JAX reference file replayed on ``dev``
+    (utils/reference.py); (C) the env at width ``n`` and the four learners'
+    updates on ``dev`` against the CPU."""
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    from torchdriveenv_tpu_torch.utils import reference as ref
+    t0 = time.perf_counter()
+    checks = ref.run_reference_checks(load_assets("val", device=dev), dev)
+    for name, c in checks.items():
+        log(f"[parity] JAX reference {name} on {dev}: largest error "
+            f"{c['max_err']:.3g} ({c['max_err_name'] or '-'}), flipped envs "
+            f"{c['flipped_envs']} of {c['envs']} (bound {c['flip_bound']}; "
+            f"first flipped by {c['flips_by'] or '-'}), agents within "
+            f"{ref.FOLD_EPS} of the fold {c['fold_agents']}, steps {c['steps']}"
+            + (f"; first float fault: {c['float_fail']}"
+               if c["float_fail"] else ""))
+        check(c["ok"], f"[parity] JAX reference {name}: {c}")
+    ref_s = time.perf_counter() - t0
+    divisions = exact_div_parity(dev)
+    env = env_parity(load_assets("train", device=dev),
+                     load_assets("train", device="cpu"), dev, n, card)
+    learners = learner_parity(dev, card)
+    total = time.perf_counter() - t0
+    log(f"[parity] done in {total:.1f} s (the reference file {ref_s:.1f} s; "
+        f"the CPU's side: env {env['cpu_s']:.1f} s, updates "
+        f"{learners['cpu_s']:.1f} s)")
+    return dict(reference=checks, divisions=divisions, env=env,
+                learners=learners, seconds=total, reference_s=ref_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -2582,9 +2970,9 @@ def main() -> int:
     from torchdriveenv_tpu_torch.maps.arrays import load_assets
     from torchdriveenv_tpu_torch.ops import _build
     from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_f32_precision()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2759,6 +3147,7 @@ def main() -> int:
     compare("crowded batch, right-handed", crowd.town, crowd_prep,
             left_handed=False)
 
+    parity = parity_phase(card)
     maps_path = maps_phase(assets, state, card)
 
     # ---- 3. the main path ----------------------------------------------
@@ -2850,7 +3239,7 @@ def main() -> int:
                       TIMED_STEPS, "num_envs": N_ENVS, "obs_checksum": checksum,
                       "phases_ms": phases,
                       "nseg_mean": main_cmp["nseg_mean"]},
-        "maps_path": maps_path,
+        "parity_path": parity, "maps_path": maps_path,
         "npc_path": npc, "gym_path": gym, "learner_path": learner,
         "train_path": trained, "tools_path": tools,
         "multi_path": multi}), flush=True)

@@ -31,6 +31,7 @@ from torchdriveenv_tpu_torch.env import core
 from torchdriveenv_tpu_torch.env.batched import _autoreset, _obs_batched, make_env_fns
 from torchdriveenv_tpu_torch.maps.arrays import load_assets, resolve_device
 from torchdriveenv_tpu_torch.npc.policy_net import default_params
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 
 def card_line() -> str:
@@ -158,8 +159,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(None)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_f32_precision()
     cfg = EnvConfig(npc_mode=args.npc)
     assets = load_assets("train", device=device)
     reset_fn, step_fn = make_env_fns(cfg, assets, render=not args.no_render)

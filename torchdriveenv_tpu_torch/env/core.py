@@ -32,6 +32,7 @@ from torchdriveenv_tpu_torch.maps.arrays import (
     Assets,
     MapArrays,
     device_constant,
+    exact_div,
     resolve_device,
     sample_dir_angle,
     sample_sdf_grad,
@@ -481,10 +482,10 @@ def step(cfg: EnvConfig, assets: Assets, state: EnvState,
         traffic_light_violation=violation,
         is_success=truncated,
         reached_waypoint_num=reached_num,
-        psi_smoothness=torch.abs((last_ego[:, 2] - ego[:, 2]) / 0.1),
+        psi_smoothness=torch.abs(exact_div(last_ego[:, 2] - ego[:, 2], 0.1)),
         psi_reward=psi_reward,
         dist_reward=dist_reward,
-        speed_smoothness=torch.abs((last_ego[:, 3] - ego[:, 3]) / 0.1),
+        speed_smoothness=torch.abs(exact_div(last_ego[:, 3] - ego[:, 3], 0.1)),
     )
     next_state = state.replace(
         agent_states=new_states,

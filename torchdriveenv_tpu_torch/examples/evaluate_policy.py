@@ -27,6 +27,7 @@ from torchdriveenv_tpu_torch.maps.arrays import load_assets, resolve_device
 from torchdriveenv_tpu_torch.models.policies import scale_action
 from torchdriveenv_tpu_torch.rl.evaluate import make_evaluator
 from torchdriveenv_tpu_torch.rl.train import build_agent, restore_checkpoint
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 EVAL_SEED = 123
 
@@ -89,6 +90,7 @@ def main(argv=None) -> Dict[str, float]:
     ap.add_argument("--device", default=None,
                     help="default: the GPU (an error without one)")
     args = ap.parse_args(argv)
+    set_f32_precision()
 
     env_cfg = EnvConfig(npc_mode=args.npc_mode) if args.npc_mode else None
     metrics = evaluate(args.checkpoint, args.algorithm, args.episodes,

@@ -15,6 +15,7 @@ import argparse
 import numpy as np
 
 from torchdriveenv_tpu_torch.config import EnvConfig
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 
 def main(argv=None) -> dict:
@@ -24,6 +25,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the GPU (an error without one)")
     args = ap.parse_args(argv)
+    set_f32_precision()
 
     from torchdriveenv_tpu_torch.env.gym_adapter import TorchGymEnv
 

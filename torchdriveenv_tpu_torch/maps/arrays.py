@@ -45,6 +45,14 @@ def device_constant(values: tuple, device: torch.device,
     return torch.tensor(values, dtype=dtype, device=device)
 
 
+def exact_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``x / divisor`` rounded once, as the CPU and XLA divide. torch's CUDA
+    kernels multiply by the reciprocal of a Python number instead, which is
+    an ulp off in about half the cases (and can flip a threshold
+    downstream); a divisor tensor on ``x``'s device is divided in IEEE."""
+    return x / device_constant(float(divisor), x.device, x.dtype)
+
+
 @dataclasses.dataclass
 class MapArrays:
     """Per-town raster geometry, padded over towns (T towns, G x G grid)."""

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchdriveenv_tpu_torch.maps.arrays import exact_div
+
 VALID_MIN_RES = 36      # below this width the convolutions pad "SAME"
 _CONVS = ((8, 4), (4, 2), (3, 1))   # (kernel, stride) of conv1..conv3
 
@@ -81,7 +83,7 @@ class NatureCNN(nn.Module):
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype == torch.float32:
-            return self._torso(obs.to(torch.float32) / 255.0)
+            return self._torso(exact_div(obs.to(torch.float32), 255.0))
         with torch.autocast(obs.device.type, dtype=self.compute_dtype):
-            x = self._torso(obs.to(self.compute_dtype) / 255.0)
+            x = self._torso(exact_div(obs.to(self.compute_dtype), 255.0))
         return x.to(torch.float32)

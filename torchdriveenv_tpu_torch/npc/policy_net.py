@@ -25,6 +25,7 @@ from torch import nn
 from torchdriveenv_tpu_torch.maps.arrays import (
     Assets,
     MapArrays,
+    exact_div,
     resolve_device,
     sample_npc_field,
 )
@@ -165,8 +166,9 @@ def _features(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
     sg = torch.clamp(torch.where(torch.isfinite(light_gap), light_gap,
                                  torch.full_like(light_gap, 30.0)), 0.0, 30.0)
     return torch.stack([
-        v / 10.0, target_speed / 10.0, torch.sin(herr), torch.cos(herr),
-        torch.clamp(edge, -1.5, 1.5), lg / 60.0, dv / 10.0, sg / 30.0,
+        exact_div(v, 10.0), exact_div(target_speed, 10.0), torch.sin(herr),
+        torch.cos(herr), torch.clamp(edge, -1.5, 1.5), exact_div(lg, 60.0),
+        exact_div(dv, 10.0), exact_div(sg, 30.0),
         present.to(torch.float32)], dim=-1)
 
 
@@ -189,7 +191,8 @@ def policy_actions(policy: NpcGRU, feats: torch.Tensor, hidden: torch.Tensor,
     hold = torch.stack([torch.clamp(-4.0 * v, *rf.ACCEL_BOUNDS),
                         torch.zeros_like(v)], dim=-1)
     act = torch.where(parked[..., None], hold, act)
-    act = torch.stack([torch.maximum(act[..., 0], -v / 0.1), act[..., 1]],
+    act = torch.stack([torch.maximum(act[..., 0], exact_div(-v, 0.1)),
+                       act[..., 1]],
                       dim=-1)
     return act, h
 

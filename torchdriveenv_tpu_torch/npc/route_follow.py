@@ -14,7 +14,7 @@ import math
 import numpy as np
 import torch
 
-from torchdriveenv_tpu_torch.maps.arrays import MapArrays, sample_npc_field
+from torchdriveenv_tpu_torch.maps.arrays import MapArrays, exact_div, sample_npc_field
 from torchdriveenv_tpu_torch.ops.traffic_lights import LightState, light_states_at
 
 # IDM parameters (standard motorway values, Treiber et al. 2000)
@@ -41,12 +41,13 @@ def _wrap(a):
     return torch.remainder(a + math.pi, 2 * math.pi) - math.pi
 
 
-def leader_gaps(states: torch.Tensor, attrs: torch.Tensor,
-                present: torch.Tensor):
-    """Nearest obstacle ahead per agent -> (gap (B, A), leader_v (B, A)).
+def obstacle_gaps(states: torch.Tensor, attrs: torch.Tensor,
+                  present: torch.Tensor):
+    """Gaps to every obstacle ahead -> (gap_ij (B, A, A), +inf where j is
+    not an obstacle of i; the cosines of the heading differences (B, A, A)).
 
-    states (B, A, 4), attrs (B, A, 3), present (B, A). gap is +inf when no
-    leader is in range. Index i is the agent, j the candidate obstacle.
+    states (B, A, 4), attrs (B, A, 3), present (B, A). Index i is the
+    agent, j the candidate obstacle.
     """
     px, py, psi, v = (states[..., 0], states[..., 1], states[..., 2],
                       states[..., 3])
@@ -85,6 +86,15 @@ def leader_gaps(states: torch.Tensor, attrs: torch.Tensor,
     is_obst = (is_leader | is_emerg) & noself
     gap_ij = lon - (length[:, :, None] + length[:, None, :]) / 2.0
     gap_ij = torch.where(is_obst, gap_ij, torch.full_like(gap_ij, math.inf))
+    return gap_ij, cospsi
+
+
+def leader_gaps(states: torch.Tensor, attrs: torch.Tensor,
+                present: torch.Tensor):
+    """Nearest obstacle ahead per agent -> (gap (B, A), leader_v (B, A)).
+    gap is +inf when no leader is in range."""
+    gap_ij, cospsi = obstacle_gaps(states, attrs, present)
+    v = states[..., 3]
     # argmin returns the first minimum, as jnp.argmin does; an exact gather
     # of the j_star column equals the JAX code's one-hot masked sum
     gap = gap_ij.amin(dim=2)
@@ -94,10 +104,11 @@ def leader_gaps(states: torch.Tensor, attrs: torch.Tensor,
     return gap, leader_v
 
 
-def light_gaps(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
-               states: torch.Tensor, attrs: torch.Tensor) -> torch.Tensor:
-    """Distance to the nearest blocking (non-green) stopline per agent,
-    +inf when none applies. town (B,), t (B,), states (B, A, 4) -> (B, A)."""
+def stopline_gaps(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
+                  states: torch.Tensor, attrs: torch.Tensor) -> torch.Tensor:
+    """Distance to every blocking (non-green) stopline ahead per agent,
+    +inf where it does not apply. town (B,), t (B,), states (B, A, 4) ->
+    (B, A, L)."""
     tw = town.long()
     px, py, psi = states[..., 0], states[..., 1], states[..., 2]
     length = attrs[..., 0]
@@ -114,8 +125,14 @@ def light_gaps(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
                  & (sl_lon > 0.0) & (sl_lon < LIGHT_RANGE)
                  & (torch.abs(sl_lat) < LIGHT_LAT))
     sl_gap = sl_lon - length[..., None] / 2.0 - 1.0
-    sl_gap = torch.where(sl_active, sl_gap, torch.full_like(sl_gap, math.inf))
-    return sl_gap.amin(dim=-1)
+    return torch.where(sl_active, sl_gap, torch.full_like(sl_gap, math.inf))
+
+
+def light_gaps(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
+               states: torch.Tensor, attrs: torch.Tensor) -> torch.Tensor:
+    """Distance to the nearest blocking (non-green) stopline per agent,
+    +inf when none applies. -> (B, A)."""
+    return stopline_gaps(maps, town, t, states, attrs).amin(dim=-1)
 
 
 def npc_actions(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
@@ -159,7 +176,7 @@ def npc_actions(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
     v_curve = torch.sqrt(3.0 * 6.0 / torch.clamp(torch.abs(heading_err), min=0.05))
     v0 = torch.clamp(torch.minimum(target_speed, v_curve), min=0.1)
     dv = v - lead_speed
-    s_star = IDM_S0 + v * IDM_T + v * dv / _IDM_DENOM
+    s_star = IDM_S0 + v * IDM_T + exact_div(v * dv, _IDM_DENOM)
     s_star = torch.clamp(s_star, min=0.0)
     ratio = s_star / gap
     interaction = torch.where(torch.isfinite(gap), ratio * ratio,
@@ -174,5 +191,5 @@ def npc_actions(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
     parked = target_speed < 0.1
     accel = torch.where(parked, torch.clamp(-4.0 * v, *ACCEL_BOUNDS), accel)
     steer = torch.where(parked, torch.zeros_like(steer), steer)
-    accel = torch.maximum(accel, -v / 0.1)
+    accel = torch.maximum(accel, exact_div(-v, 0.1))
     return torch.stack([accel, steer], dim=-1)

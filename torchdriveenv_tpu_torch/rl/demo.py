@@ -20,7 +20,7 @@ import math
 import torch
 
 from torchdriveenv_tpu_torch.config import EnvConfig
-from torchdriveenv_tpu_torch.maps.arrays import Assets, sample_sdf
+from torchdriveenv_tpu_torch.maps.arrays import Assets, exact_div, sample_sdf
 from torchdriveenv_tpu_torch.ops.traffic_lights import LightState, light_states_at
 
 _INF = float("inf")
@@ -101,7 +101,8 @@ def make_scripted_driver(cfg: EnvConfig, assets: Assets):
         dodge_sign = torch.where(_pick(lat, j) > 0.2, -1.0, 1.0)
         dodge = torch.where(
             has & ~block,
-            dodge_sign * torch.clamp((40.0 - lon_j) / 40.0, 0.0, 1.0) * 0.25,
+            dodge_sign * torch.clamp(exact_div(40.0 - lon_j, 40.0), 0.0, 1.0)
+            * 0.25,
             0.0)
         steer = torch.clamp(steer + dodge, -0.3, 0.3)
         # imminent (cannot stop in time even at full brake): swerve hard
@@ -162,7 +163,7 @@ def make_scripted_driver(cfg: EnvConfig, assets: Assets):
                  & (_pick(yrem, l_idx) > t_cross + 0.2))
         brake_light = brake_light & ~punch
         # brake to a stop, never through it into reverse
-        brake_a = torch.clamp(-v / 0.1, -1.0, 1.0)
+        brake_a = torch.clamp(exact_div(-v, 0.1), -1.0, 1.0)
         cruise = torch.clamp(torch.where(v > v_tgt, 2.5, 0.8) * (v_tgt - v),
                              -1.0, 1.0)
         accel = torch.where(

@@ -17,7 +17,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from torchdriveenv_tpu_torch.maps.arrays import resolve_device
+from torchdriveenv_tpu_torch.maps.arrays import exact_div, resolve_device
 from torchdriveenv_tpu_torch.models.policies import (
     GaussianActorCritic,
     gaussian_entropy,
@@ -277,7 +277,7 @@ def _normalized(adv: torch.Tensor, m: int, mesh: Optional[Mesh]
     std), from sums over the rows of every rank (two all-reduces)."""
     mean = adv.sum().reshape(1)
     all_reduce_([mean], mesh)
-    mean = mean / m
+    mean = exact_div(mean, m)
     var = ((adv - mean) ** 2).sum().reshape(1)
     all_reduce_([var], mesh)
-    return (adv - mean) / (torch.sqrt(var / m) + 1e-8)
+    return (adv - mean) / (torch.sqrt(exact_div(var, m)) + 1e-8)

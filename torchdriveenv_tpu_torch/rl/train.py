@@ -68,6 +68,7 @@ from torchdriveenv_tpu_torch.parallel.train_step import (
 from torchdriveenv_tpu_torch.rl.buffer import ReplayBuffer
 from torchdriveenv_tpu_torch.rl.evaluate import make_evaluator
 from torchdriveenv_tpu_torch.rl.rollout import RolloutState, init_stack, update_stack
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 from torchdriveenv_tpu_torch.utils.video import save_video
 
 
@@ -266,6 +267,7 @@ def train(cfg: RlTrainingConfig, resume_from: Optional[str] = None,
     algo = cfg.algorithm or BaselineAlgorithm.sac
     env_cfg = cfg.env
     device = resolve_device(env_cfg.device)
+    set_f32_precision()
     num_envs = cfg.parallel_env_num
     fs = env_cfg.frame_stack
     agent, on_policy = build_agent(algo, obs_channels=3 * fs,

@@ -45,6 +45,7 @@ from torchdriveenv_tpu_torch.maps.arrays import (
     sample_sdf,
 )
 from torchdriveenv_tpu_torch.ops.collision import obb_corners
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 EGO_MAX_SIZE = np.array([5.5, 2.2], np.float32)  # reference gym_env.py:194-196
 
@@ -211,6 +212,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="default: the GPU (an error without one)")
     args = ap.parse_args(argv)
+    set_f32_precision()
 
     total_viol = 0
     report = []

@@ -37,6 +37,7 @@ from torchdriveenv_tpu_torch.models.policies import unscale_action
 from torchdriveenv_tpu_torch.rl.demo import make_scripted_driver
 from torchdriveenv_tpu_torch.rl.rollout import init_stack, update_stack
 from torchdriveenv_tpu_torch.rl.sac import SAC, SACConfig
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 BC_LOG_STD = -1.6       # exp(-1.6) ~ 0.2: tight but not collapsed
 TARGET_CLIP = 0.98
@@ -113,6 +114,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the GPU (an error without one)")
     args = ap.parse_args(argv)
+    set_f32_precision()
 
     device = resolve_device(args.device)
     cfg = EnvConfig()

@@ -30,6 +30,7 @@ import torch
 
 from torchdriveenv_tpu_torch.maps import compile as mc
 from torchdriveenv_tpu_torch.maps.arrays import resolve_device
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_OUT = os.path.join(_PKG, "build", "assets")
@@ -131,6 +132,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     ap.add_argument("--device", default=None,
                     help="device of the grid passes (default: the GPU)")
     args = ap.parse_args(argv)
+    set_f32_precision()
     suites = mc.load_suites(args.reference)
     background = mc.load_background(args.reference)
     return compile_assets(suites, background, args.out, device=args.device)

@@ -40,6 +40,7 @@ from torchdriveenv_tpu_torch.env.batched import _obs_batched
 from torchdriveenv_tpu_torch.maps.arrays import (
     Assets,
     device_constant,
+    exact_div,
     load_assets,
     resolve_device,
     sample_sdf,
@@ -53,6 +54,7 @@ from torchdriveenv_tpu_torch.rl.demo import (
     make_scripted_driver,
 )
 from torchdriveenv_tpu_torch.rl.rollout import init_stack, update_stack
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 CAUSES = ["offroad", "collision", "light", "truncated", "alive"]
 # reference README.md:15-27 validation case names (same YAML order)
@@ -129,7 +131,8 @@ def _ego_action_fn(cfg: EnvConfig, assets: Assets, kind: str, agent):
             # dodge laterally away from the obstacle, harder when close
             dodge = torch.where(
                 has, -torch.sign(lat_j)
-                * torch.clamp((22.0 - lon_j) / 22.0, 0.0, 1.0) * 0.3, 0.0)
+                * torch.clamp(exact_div(22.0 - lon_j, 22.0), 0.0, 1.0) * 0.3,
+                0.0)
             steer = torch.clamp(steer + dodge, -0.3, 0.3)
             # brake for red lights (the IDM light gap of the ego)
             t = s.time0 + s.step_idx.to(torch.float32) * dt
@@ -283,6 +286,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the GPU (an error without one)")
     args = ap.parse_args(argv)
+    set_f32_precision()
 
     device = resolve_device(args.device)
     cfg = probe_config()

@@ -17,6 +17,7 @@ import argparse
 
 from torchdriveenv_tpu_torch.maps.arrays import load_assets, resolve_device
 from torchdriveenv_tpu_torch.npc import policy_net
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 
 def main(argv=None) -> dict:
@@ -28,6 +29,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the GPU (an error without one)")
     args = ap.parse_args(argv)
+    set_f32_precision()
 
     assets = load_assets("train", device=resolve_device(args.device))
     # fresh weights and scenes, each from a generator seeded 0

@@ -17,6 +17,7 @@ from typing import List
 
 from torchdriveenv_tpu_torch.config import EnvConfig
 from torchdriveenv_tpu_torch.examples.evaluate_policy import evaluate
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 
 def model_names(ckpt_dir: str, last_n=None) -> List[str]:
@@ -40,6 +41,7 @@ def main(argv=None) -> List[dict]:
     ap.add_argument("--device", default=None,
                     help="default: the GPU (an error without one)")
     args = ap.parse_args(argv)
+    set_f32_precision()
 
     env_cfg = EnvConfig(npc_mode=args.npc_mode) if args.npc_mode else None
     rows = []

@@ -42,6 +42,7 @@ from torchdriveenv_tpu_torch.parallel.train_step import make_offpolicy_train_fns
 from torchdriveenv_tpu_torch.rl import buffer as replay
 from torchdriveenv_tpu_torch.rl.rollout import RolloutState, init_stack, make_offpolicy_step
 from torchdriveenv_tpu_torch.rl.sac import SAC, SACConfig
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 bandwidth
 H100_PEAK_BF16_FLOPS = 989e12
@@ -239,6 +240,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the GPU (an error without one)")
     args = ap.parse_args(argv)
+    set_f32_precision()
 
     dev = resolve_device(args.device)
     report = profile(args.batches, args.num_envs, args.updates_per_iter,

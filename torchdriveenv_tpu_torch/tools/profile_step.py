@@ -28,6 +28,7 @@ from torchdriveenv_tpu_torch.env.batched import _obs_batched, make_env_fns
 from torchdriveenv_tpu_torch.maps.arrays import load_assets, resolve_device
 from torchdriveenv_tpu_torch.npc.route_follow import npc_actions
 from torchdriveenv_tpu_torch.ops import rasterizer
+from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 
 def profile(num_envs: int, device=None, iters: int = 3) -> Dict[str, float]:
@@ -83,6 +84,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the GPU (an error without one)")
     args = ap.parse_args(argv)
+    set_f32_precision()
 
     dev = resolve_device(args.device)
     card = card_line() if dev.type == "cuda" else "cpu"
