@@ -65,6 +65,18 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              the default EnvConfig, with the launch counts set to 0 just
              before and read just after; the kernel must have launched once
              per render. Then 4 steps with with_final_obs=True.
+  3a. bench the bench's entry point (python -m torchdriveenv_tpu_torch.bench)
+             in its two modes. --breakdown at 4096 route-mode envs, chunks
+             of 16, 3 timed: the step's least bytes and operations counted
+             from shapes, its shares of the f32 and HBM peaks in (0, 1], its
+             least time no more than the measured one, the render's least
+             time no more than the kernel's on the same inputs. --mesh at
+             4096 envs, chunks of 8, 2 timed: one rank under nccl (torchrun's
+             variables) and two gloo ranks sharing the card (rank 0 also
+             writes the breakdown of its rows), each against one process of
+             the same seed and steps: the frames' checksum summed over the
+             ranks exact, the rewards' within rtol 1e-5. The kernel's launch
+             count is set to 0 before each run and read after.
   4. npc   the GRU NPC policy. (a) The shipped weights on the 4096-env
              policy-mode batch after 8 steps, card (TF32 off) against the
              CPU: atol 1e-5 on actions and hidden state, on the card's own
@@ -155,6 +167,7 @@ import contextlib
 import copy
 import dataclasses
 import importlib
+import io
 import json
 import math
 import os
@@ -172,13 +185,6 @@ import torch
 # cores, HBM3)
 PEAK_F32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# f32 operations of the rasterizer per pixel and segment (the road test:
-# 2 sub, 2 mul, add, mul, 2 clamp, 2 mul, 2 sub, 2 mul, add, compare, or)
-ROAD_OPS = 17
-# f32 operations per pixel outside the road scan: pixel center 14, 8 discs
-# x 8, 16 boxes x 17, ego box 14, 4 stoplines x 18, 3 x 6 selects
-COMPOSITE_OPS = 14 + 8 * 8 + 16 * 17 + 14 + 4 * 18 + 3 * 6
-PIXELS = 64 * 64
 N_ENVS = 4096
 TIMED_STEPS = 32
 
@@ -198,25 +204,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def rasterizer_bound_ms(maps, town, ci, cj, nseg):
-    """Least time for one render of these envs: the larger of the bytes
-    over HBM rate and the f32 operations over the f32 rate.
-    Returns (ms, "bytes" or "operations", bytes ms, operations ms)."""
-    b = town.shape[0]
-    ops = ROAD_OPS * PIXELS * int(nseg.long().sum()) + COMPOSITE_OPS * PIXELS * b
-    cells = torch.unique(torch.stack([town, ci, cj], 1), dim=0)
-    rows = maps.seg_cell_n[cells[:, 0].long(), cells[:, 1].long(),
-                           cells[:, 2].long()].long().sum()
-    nbytes = (int(rows) * 8 * 4                 # segment rows, read once
-              + b * (8 + 16 + 8) * 8 * 4        # env / agent / waypoint blocks
-              + b * 4 * 4                       # town, ci, cj, nseg
-              + b * 3 * PIXELS)                 # uint8 frames
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_F32_OPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes > t_ops else "operations",
-            t_bytes * 1e3, t_ops * 1e3)
 
 
 # ---- the [maps] phase: the offline map compiler -------------------------
@@ -2103,6 +2090,172 @@ def tools_phase(card) -> dict:
     return result
 
 
+# ---- the [bench] phase: the bench's --breakdown and --mesh modes ----------
+BENCH_ENVS = 4096
+BENCH_SEED = 0
+BENCH_BREAKDOWN_RUN = dict(chunk=16, iters=3)
+BENCH_MESH_RUN = dict(chunk=8, iters=2)
+# the ranks of --mesh: one under nccl with torchrun's variables (the bench
+# sets its group up), two under gloo sharing the card (the worker sets the
+# group up, and the bench takes it as it finds it)
+BENCH_MESH_CASES = {"bench1": 1, "bench2": 2}
+BENCH_REWARD_RTOL = 1e-5
+
+
+def _bench_argv(run: dict, *extra) -> list:
+    return ["--num_envs", str(BENCH_ENVS), "--seed", str(BENCH_SEED),
+            "--chunk", str(run["chunk"]), "--iters", str(run["iters"]),
+            *extra]
+
+
+def _bench_steps(run: dict) -> int:
+    """Env steps of a bench run: the warm-up chunk and the timed ones."""
+    return run["chunk"] * (run["iters"] + 1)
+
+
+def _bench_worker(pm, case: str, out_dir: str) -> dict:
+    """A rank of ``bench --mesh`` (``--multi-worker bench1|bench2``): the
+    bench's main with the kernel's launch count set to 0 just before and
+    read just after. bench2's rank 0 also writes the breakdown of its own
+    rows."""
+    from torchdriveenv_tpu_torch import bench
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    argv = _bench_argv(BENCH_MESH_RUN, "--mesh")
+    if BENCH_MESH_CASES[case] > 1:
+        # nccl refuses two ranks on one card
+        check(pm.maybe_init_distributed(backend="gloo",
+                                        timeout_s=MULTI_TIMEOUT_S),
+              "the gloo group did not come up")
+        argv += ["--breakdown", os.path.join(out_dir,
+                                             f"{case}_breakdown.json")]
+    rc.render_obs_cuda.launches = 0
+    record = bench.main(argv)
+    return dict(record=record, launches=rc.render_obs_cuda.launches)
+
+
+def _bench_main(bench, argv: list) -> dict:
+    """The bench's main in this process, its line logged under [bench]
+    (no bare JSON line of its own in this script's output)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        record = bench.main(argv)
+    for line in out.getvalue().splitlines():
+        log(f"[bench] line: {line}")
+    return record
+
+
+def _check_breakdown(bd: dict, label: str, card: str) -> dict:
+    """Log a breakdown file's shares and fail on a share outside (0, 1], a
+    least step time over the measured one, or a least render time over
+    the kernel's measured time."""
+    r = bd["roofline"]
+    shares = dict(f32=r["flops_utilization_vs_f32_peak"],
+                  hbm=r["hbm_bw_utilization"])
+    render_least = r["phases_least_ms"]["render"]
+    log(f"[bench] {label}: {bd['num_envs']} envs, "
+        f"{bd['fused_per_step_ms']:.3f} ms a step against a least "
+        f"{r['least_ms_per_step']:.4f} ms (by {r['bound_by']}): share of "
+        f"the f32 peak {shares['f32']:.3e}, of the HBM rate "
+        f"{shares['hbm']:.3e}; phases ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in bd["phases_ms_per_step"].items())
+        + ", least ms "
+        + ", ".join(f"{k} {v:.4f}" for k, v in r["phases_least_ms"].items())
+        + f"; the kernel {bd['render_kernel_ms']:.4f} ms; envs done a step "
+        f"{bd['done_share_per_step']:.5f} [{card}]")
+    check(all(0.0 < x <= 1.0 for x in shares.values()),
+          f"[bench] {label}: a share outside (0, 1]: {shares}")
+    check(r["least_ms_per_step"] <= bd["fused_per_step_ms"],
+          f"[bench] {label}: least step time {r['least_ms_per_step']} ms "
+          f"over the measured {bd['fused_per_step_ms']} ms")
+    check(render_least <= bd["render_kernel_ms"],
+          f"[bench] {label}: the render's least time {render_least} ms over "
+          f"the kernel's {bd['render_kernel_ms']} ms")
+    return dict(shares, least_ms_per_step=r["least_ms_per_step"],
+                fused_per_step_ms=bd["fused_per_step_ms"],
+                bound_by=r["bound_by"], render_least_ms=render_least,
+                render_kernel_ms=bd["render_kernel_ms"])
+
+
+def bench_phase(card) -> dict:
+    """Phase 3a: the bench's entry point (torchdriveenv_tpu_torch/bench.py)
+    in its two modes. ``--breakdown`` at 4096 route-mode envs; ``--mesh``
+    under one nccl rank and under two gloo ranks sharing the card, each
+    against one process with the same seed and steps: the frames' checksum
+    summed over the ranks exact, the rewards' within rtol 1e-5."""
+    from torchdriveenv_tpu_torch import bench
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "breakdown.json")
+        rc.render_obs_cuda.launches = 0
+        line = _bench_main(bench, _bench_argv(BENCH_BREAKDOWN_RUN,
+                                              "--breakdown", path))
+        launches = rc.render_obs_cuda.launches
+        with open(path) as f:
+            bd = json.load(f)
+        steps = _bench_steps(BENCH_BREAKDOWN_RUN)
+        log(f"[bench] --breakdown: {line['value']:.1f} env-steps/s (median "
+            f"{line['median']:.1f}), rasterizer launches {launches} "
+            f"({steps} steps) [{card}]")
+        check(launches >= steps, f"[bench] the kernel launched {launches} "
+              f"times in {steps} steps")
+        out = dict(breakdown=bd, breakdown_shares=_check_breakdown(
+            bd, "--breakdown", card), breakdown_launches=launches,
+            breakdown_line=line)
+
+        one = _bench_main(bench, _bench_argv(BENCH_MESH_RUN))
+        out["one_process"] = one
+        for case, world in BENCH_MESH_CASES.items():
+            run_ranks("bench", case, world, tmp)
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"{case}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            rec = ranks[0]["record"]
+            rank_launches = [x["launches"] for x in ranks]
+            reward_err = (abs(rec["reward_checksum"] - one["reward_checksum"])
+                          / abs(one["reward_checksum"]))
+            log(f"[bench] --mesh {case}: world {rec['world']} "
+                f"({rec['backend']}), {rec['value']:.1f} env-steps/s over "
+                f"the ranks ({rec['value_per_rank']:.1f} a rank; one process "
+                f"{one['value']:.1f}), chunk s by rank "
+                f"{rec['chunk_times_s_by_rank']}; obs checksum "
+                f"{rec['obs_checksum']} against {one['obs_checksum']}, reward "
+                f"{rec['reward_checksum']!r} against "
+                f"{one['reward_checksum']!r} (relative {reward_err:.2e}); "
+                f"rasterizer launches by rank {rank_launches} [{card}]")
+            check(rec["world"] == world and rec["backend"] == (
+                "nccl" if world == 1 else "gloo"),
+                f"[bench] {case} ran as world {rec['world']} "
+                f"{rec['backend']}")
+            check(rec["obs_checksum"] == one["obs_checksum"],
+                  f"[bench] {case}: the summed obs checksum differs from "
+                  "one process's")
+            check(reward_err <= BENCH_REWARD_RTOL,
+                  f"[bench] {case}: the reward checksum is {reward_err:.2e} "
+                  "off one process's")
+            check(all(n >= _bench_steps(BENCH_MESH_RUN)
+                      for n in rank_launches),
+                  f"[bench] {case}: rasterizer launches by rank "
+                  f"{rank_launches}")
+            out[case] = dict(record=rec, launches=rank_launches,
+                             reward_rel_err=reward_err)
+            if world > 1:
+                with open(os.path.join(tmp, f"{case}_breakdown.json")) as f:
+                    mbd = json.load(f)
+                out[case]["breakdown_shares"] = _check_breakdown(
+                    mbd, f"--mesh {case} --breakdown (rank 0's rows)", card)
+                check(mbd["rows"] == dict(
+                    rank=0, world=world, lo=0, hi=BENCH_ENVS // world,
+                    global_envs=BENCH_ENVS),
+                    f"[bench] {case}: the breakdown's rows {mbd['rows']}")
+                out[case]["breakdown_rows"] = mbd["rows"]
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[bench] phase {out['wall_s']:.1f} s")
+    return out
+
+
 # ---- the [multi] phase: data parallelism over torch.distributed ----------
 # its ranks are subprocesses of this script (``--multi-worker``), so no
 # process group outlives the phase
@@ -2486,14 +2639,23 @@ def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
 
 
 def multi_worker(args) -> int:
-    """A rank of the [multi] phase: ``--multi-worker <case> <out_dir>``,
-    with RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT set."""
+    """A rank of the [multi] or [bench] phase: ``--multi-worker <case>
+    <out_dir>``, with RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR /
+    MASTER_PORT set."""
     import torch.distributed as dist
     from torchdriveenv_tpu_torch.parallel import mesh as pm
     from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
     case, out_dir = args
     dev = "cuda" if torch.cuda.is_available() else "cpu"
     set_f32_precision()
+    if case in BENCH_MESH_CASES:
+        res = _bench_worker(pm, case, out_dir)
+        with open(os.path.join(out_dir, f"{case}_rank{os.environ['RANK']}"
+                               ".json"), "w") as f:
+            json.dump(res, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return 0
     torch.backends.cudnn.deterministic = True
     res = (_multi_world1(pm, dev) if case == "world1"
            else _multi_world2(pm, dev))
@@ -2504,44 +2666,54 @@ def multi_worker(args) -> int:
     return 0
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(phase: str, case: str, world: int, out_dir: str) -> list:
+    """Run ``world`` ranks of ``--multi-worker <case> <out_dir>`` as
+    subprocesses with torchrun's variables (RANK / WORLD_SIZE / LOCAL_RANK
+    0 / MASTER_ADDR / MASTER_PORT), each with a timeout and killed if it
+    outlives it; log the end of each rank's output and fail on a non-zero
+    exit. -> each rank's output."""
+    import subprocess
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multi-worker", case,
+         out_dir], env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTI_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in text.splitlines()
+                 if "warn_or_error_on_sync" not in ln]
+        for line in lines[-40:]:
+            log(f"[{phase} {case} rank {r}] {line}")
+        check(p.returncode == 0, f"[{phase}] {case} rank {r} exited "
+              f"{p.returncode}")
+    return outs
+
+
 def multi_phase(card) -> dict:
     """Phase 9: data parallelism. World 1 under nccl must equal the run
     with no process group; world 2 under gloo, both ranks on the one card,
     must equal one process on the 4096-env rollout, a pooled-reset step and
     small SAC / PPO train steps. Each case runs in subprocesses with a
     timeout; any failure fails the phase."""
-    import socket
-    import subprocess
-
-    def free_port() -> int:
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            return s.getsockname()[1]
-
     def run(case, world, tmp):
-        env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_RANK="0",
-                   MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--multi-worker", case,
-             tmp], env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(world)]
         t0 = time.perf_counter()
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=MULTI_TIMEOUT_S)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        for r, (p, text) in enumerate(zip(procs, outs)):
-            lines = [ln for ln in text.splitlines()
-                     if "warn_or_error_on_sync" not in ln]
-            for line in lines[-40:]:
-                log(f"[multi {case} rank {r}] {line}")
-            check(p.returncode == 0, f"[multi] {case} rank {r} exited "
-                  f"{p.returncode}")
+        outs = run_ranks("multi", case, world, tmp)
         with open(os.path.join(tmp, f"{case}.json")) as f:
             res = json.load(f)
         res["wall_s"] = time.perf_counter() - t0
@@ -3034,7 +3206,10 @@ def main() -> int:
     k_ms = cuda_ms(lambda: rc.render_obs_cuda(maps, state.town, *main_prep),
                    100)
     p_ms = cuda_ms(lambda: rc.render_obs_torch(maps, state.town, *main_prep), 3)
-    _, _, b_ms, o_ms = rasterizer_bound_ms(maps, state.town, *main_prep[:3])
+    cost = rc.render_cost(maps, state.town, *main_prep)
+    b_ms = cost["bytes"] / PEAK_HBM_BYTES * 1e3
+    o_ms = cost["flops_scan_all"] / PEAK_F32_OPS * 1e3
+    culled_ms = cost["flops"] / PEAK_F32_OPS * 1e3
     # The operation count is that of scanning every listed segment on every
     # pixel. A kernel that beats it does fewer operations than it counts, so
     # only the bytes still bound it.
@@ -3052,7 +3227,8 @@ def main() -> int:
     del masks
     log(f"[kernels] rasterizer main batch: kernel {k_ms:.4f} ms, twin "
         f"{p_ms:.4f} ms, bounds: bytes {b_ms:.4f} ms, operations of a scan of "
-        f"every listed segment {o_ms:.4f} ms; segments "
+        f"every listed segment {o_ms:.4f} ms, operations of what survives "
+        f"the culls {culled_ms:.4f} ms; segments "
         f"per env: listed {surv['nseg_mean']:.1f}, after the frame cull "
         f"{surv['frame_segments_mean']:.1f}, per tile "
         f"{surv['tile_segments_mean']:.2f} (max {surv['tile_segments_max']}); "
@@ -3063,7 +3239,8 @@ def main() -> int:
     main_cmp = dict(max_abs_err=float((kern.int() - twin.int()).abs().max()),
                     ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                     bound_by=bound_by, bytes_bound_ms=b_ms,
-                    scan_all_operations_bound_ms=o_ms, **surv)
+                    scan_all_operations_bound_ms=o_ms,
+                    culled_operations_bound_ms=culled_ms, **surv)
     del kern, twin
 
     compare("main batch, right-handed, ego not highlighted", state.town,
@@ -3206,6 +3383,7 @@ def main() -> int:
         raise AssertionError("with_final_obs path did not render as expected")
     del fenv, fstate, fout
 
+    bench_path = bench_phase(card)
     npc = npc_phase(assets, act, card, prep_of, steps_per_s)
     gym = gym_phase(assets, state, card, have)
     learner = learner_phase(assets, env, state, act, card)
@@ -3230,6 +3408,7 @@ def main() -> int:
         "tools_launches": tools["rasterizer_launches"],
         "bytes_bound_ms": main_cmp["bytes_bound_ms"],
         "scan_all_operations_bound_ms": main_cmp["scan_all_operations_bound_ms"],
+        "culled_operations_bound_ms": main_cmp["culled_operations_bound_ms"],
         "cull": {k: main_cmp[k] for k in (
             "frame_segments_mean", "tile_segments_mean", "tile_segments_max",
             "tile_agents_mean", "tile_waypoints_mean", "tile_stoplines_mean",
@@ -3239,6 +3418,7 @@ def main() -> int:
                       TIMED_STEPS, "num_envs": N_ENVS, "obs_checksum": checksum,
                       "phases_ms": phases,
                       "nseg_mean": main_cmp["nseg_mean"]},
+        "bench_path": bench_path,
         "parity_path": parity, "maps_path": maps_path,
         "npc_path": npc, "gym_path": gym, "learner_path": learner,
         "train_path": trained, "tools_path": tools,

@@ -55,6 +55,30 @@ KERNEL_RES = 64     # the kernel's pixel layout: 4 x 4 tiles of CULL_TILE^2
 CULL_TILE = 16      # side of a cull tile in pixels (one warp per tile)
 CULL_MARGIN = 0.25  # metres added to every cull radius (kCullMargin)
 
+# f32 operations per pixel of a render, for ``render_cost``; each
+# elementwise operation counts one:
+# the road test of one segment: 2 sub, 2 mul, add, mul, 2 clamp, 2 mul,
+# 2 sub, 2 mul, add, compare, or
+ROAD_OPS = 17
+# the pixel's world centre: 2 sub, 2 mul, 2 negate, 4 mul, 4 add or sub
+PIXEL_CENTRE_OPS = 14
+# one waypoint disc: 2 sub, 2 mul, add, 2 compare, and
+DISC_OPS = 8
+# one NPC box: 2 sub, 4 mul, 2 add, negate, 2 abs, 3 compare, 2 and, or
+BOX_OPS = 17
+# the ego box: 2 sub, 4 mul, 2 add, negate, 2 abs, 2 compare, and
+EGO_BOX_OPS = 14
+# one stopline: 2 sub, 2 mul, add, mul, 2 clamp, 2 mul, 2 sub, 2 mul, add,
+# 2 compare, and
+STOPLINE_OPS = 18
+# the overlay, a channel: road, disc, stopline, NPC and ego selects, the
+# cast to uint8
+SELECT_OPS = 3 * 6
+# every primitive of the blocks on a pixel: 8 discs, 16 boxes, the ego, 4
+# stoplines
+COMPOSITE_OPS = (PIXEL_CENTRE_OPS + 8 * DISC_OPS + 16 * BOX_OPS + EGO_BOX_OPS
+                 + 4 * STOPLINE_OPS + SELECT_OPS)
+
 
 # ---------------------------------------------------------------------------
 # per-env cull & pack (plain torch; shared by the kernel and its twin)
@@ -333,8 +357,9 @@ def cull_masks_torch(maps: MapArrays, town, ci, cj, nseg, env_block,
     between the frame's (tile's) outermost pixel centres plus ``margin``.
     Half-diagonals scale with the length of the ego's (cos, sin) row, and a
     box's centre distance with the length of its own, so the predicates
-    stay conservative for rows that are not unit vectors. Nothing on the
-    GPU path calls this function.
+    stay conservative for rows that are not unit vectors. The env step
+    never calls this function; ``render_cost`` counts the kernel's work
+    with it.
     """
     seg = maps.seg_data[town.long(), ci.long(), cj.long()]        # (B, K, 8)
     ego = env_block[:, 0]
@@ -384,6 +409,45 @@ def cull_masks_torch(maps: MapArrays, town, ci, cj, nseg, env_block,
                 & (d2_sl <= ((STOPLINE_HALF_THICK + r_tile) ** 2)[:, None]))
     return CullMasks(frame=frame, seg=seg_tile, agent=agent, wp=wp,
                      stopline=stopline, ego=box_reach(ego[:, None])[..., 0])
+
+
+def render_cost(maps: MapArrays, town, ci, cj, nseg, env_block, agent_block,
+                wp_block, res: int = 64, fov: float = 70.0,
+                left_handed: bool = True) -> dict:
+    """The least work of one render of these envs, counted from shapes and
+    from these inputs -> {"bytes", "flops", "flops_scan_all"}.
+
+    bytes: the segment rows of the envs' cells (each distinct cell read
+    once), the env / agent / waypoint blocks and the four int32 vectors,
+    and the uint8 frames written.
+    flops: per tile of ``CULL_TILE`` x ``CULL_TILE`` pixels, ``ROAD_OPS``
+    for each segment that survives the tile's cull and the composite
+    operations of the primitives the tile keeps (``cull_masks_torch``),
+    plus each pixel's centre and selects.
+    flops_scan_all: every listed segment and every primitive on every
+    pixel, the work of a kernel with no cull.
+    """
+    b = town.shape[0]
+    pixels = res * res
+    cells = torch.unique(torch.stack([town, ci, cj], 1), dim=0)
+    rows = int(maps.seg_cell_n[cells[:, 0].long(), cells[:, 1].long(),
+                               cells[:, 2].long()].long().sum())
+    nbytes = (rows * maps.seg_data[0, 0, 0, 0].nbytes
+              + sum(x.nbytes for x in (town, ci, cj, nseg, env_block,
+                                       agent_block, wp_block))
+              + b * 3 * pixels)
+    m = cull_masks_torch(maps, town, ci, cj, nseg, env_block, agent_block,
+                         wp_block, res=res, fov=fov, left_handed=left_handed)
+    tiles = m.seg.shape[1]
+    per_tile = (ROAD_OPS * int(m.seg.sum()) + DISC_OPS * int(m.wp.sum())
+                + BOX_OPS * int(m.agent.sum())
+                + STOPLINE_OPS * int(m.stopline.sum())
+                + EGO_BOX_OPS * int(m.ego.sum())
+                + (PIXEL_CENTRE_OPS + SELECT_OPS) * b * tiles)
+    scan_all = (ROAD_OPS * pixels * int(nseg.long().sum())
+                + COMPOSITE_OPS * pixels * b)
+    return {"bytes": nbytes, "flops": per_tile * CULL_TILE * CULL_TILE,
+            "flops_scan_all": scan_all}
 
 
 # ---------------------------------------------------------------------------
