@@ -157,10 +157,59 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              line. A one-process witness, cuDNN on and off: a SAC critic
              gradient taken whole and as the sum over the two ranks' rows,
              one Adam step apart. Two ranks on one card is a correctness
-             check: its times are not a scaling figure.
+             check: its times are not a scaling figure. The drift case: two
+             gloo ranks on the card and two single processes (cuDNN on, the
+             reference; cuDNN off, the yardstick), started together, each
+             taking 200 train steps of the stage-1 SAC recipe shrunk to 64
+             envs, 256 ring cells and 2 updates of 128, at the port's
+             precision: the critic's relative parameter distance and the
+             critic and actor losses' relative gaps against the reference
+             at steps 1-200; the sharded distance held to DRIFT_BOUND
+             times the yardstick's at every mark (the bound PERF.md
+             states). The recipe freezes the actor and scripts every env
+             for these steps: the case trains the critic on data the
+             learner does not steer.
 Then it prints one JSON line describing each kernel and the paths, the
 card's name and power limit, and as the last line {"ok": true, "device":
 {...}}.
+
+    python3 chip_smoke.py --cards 4
+
+needs four cards, and fails with fewer. It builds the kernels, then runs
+the training CLI's train (rl/train.py) data parallel over the four cards,
+each rank a subprocess of this script on its own card (LOCAL_RANK = RANK)
+under nccl, every subprocess with a timeout and all killed when one
+fails. Stage B, four ranks: PPO from ppo_1024.yml at 4096 envs and at its
+own 1024, and the stage-1 SAC recipe (128 envs, a 3125-cell ring), f32
+with cuDNN off, 3 train steps each (PPO at 1024 and SAC with full_latest
+at train step 2 and at the end, and resumed from the step-2 file for one
+train step); then the timing runs at the recipes' precision (PPO at 4096
+envs and at 4096 a card, SAC; 4 train steps, the 3rd and 4th timed: rank
+0 evaluates after the 1st while the others wait in the 2nd). Stage C,
+one process a card side by side: the same three runs as references, the
+step-2 files resumed in one process, the one-card timing runs, and two
+witnesses of summation order (the first updating train step of PPO at
+4096 envs and of SAC taken twice from one state, the second time with
+each batch's rows in another order). Stage D: the README's command, python -m
+torch.distributed.run --standalone --nproc_per_node 4 -m
+torchdriveenv_tpu_torch.rl.train --config_file ppo_1024.yml at 4096 envs
+for 3 train steps, its evaluation and video included. Held: the ranks'
+agents bit-equal; every world-4 run within the CPU tests' Adam tolerance
+of one process after each of its first 3 gradient updates from one state;
+after its first updating train step (64 updates, where other summation
+orders have compounded past that tolerance), PPO at 4096 envs and SAC
+departing from one process at most CARD_WITNESS_ORDER times as far as
+their witnesses (the later train steps and the metrics are printed); 2
+rasterizer launches per env step on every rank, rendering its own rows
+(and the reset pool); model_* and full_latest written by rank 0 alone;
+the resume at world 4 bit-equal to the run without a break; the resume in
+one process with its step count, generator, env rows and replay ring
+equal and its first 3 updates within the Adam tolerance. Printed:
+train-step times (rollout / update) of the slowest rank and the ranks'
+range, env-steps/s, the host's wait in the owned-row nonzero reads
+against the update on each rank, peak memory beside the replay
+ring, rank 0's evaluation gap against nccl's default timeout; the same
+last line, whose count is then 4.
 """
 
 import contextlib
@@ -1334,11 +1383,13 @@ def probed_train(train_mod, rc):
     ``agent.update``, and the rasterizer's launches per call. Nothing
     synchronizes inside the run; the events are read afterwards. Yields a
     namespace with ``rows`` [(start, first update, end, launches)], the
-    plain ``train_fn``, the ``agent``, the ``assets``, the agent's state
-    right after ``init_fn`` and at the start of the first train step."""
+    host clock's ``host`` [(start, end)] and the ``metrics`` of every
+    call, the plain ``train_fn``, the ``agent``, the ``assets``, the
+    agent's state right after ``init_fn`` and at the start of the first
+    train step."""
     probe = types.SimpleNamespace(rows=[], train_fn=None, agent=None,
                                   assets=None, initial=None, first=None,
-                                  mark=None)
+                                  mark=None, host=[], metrics=[])
     names = ("make_onpolicy_train_fns", "make_offpolicy_train_fns")
     plain = {n: getattr(train_mod, n) for n in names}
 
@@ -1367,10 +1418,13 @@ def probed_train(train_mod, rc):
                     probe.first = agent.export_state()
                 probe.mark = None
                 n0 = rc.render_obs_cuda.launches
+                t0 = time.perf_counter()
                 e0 = event()
                 out = train_fn(assets, carry)
                 probe.rows.append((e0, probe.mark, event(),
                                    rc.render_obs_cuda.launches - n0))
+                probe.host.append((t0, time.perf_counter()))
+                probe.metrics.append(out[1])
                 return out
 
             agent.update = marked_update
@@ -2639,13 +2693,13 @@ def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
 
 
 def multi_worker(args) -> int:
-    """A rank of the [multi] or [bench] phase: ``--multi-worker <case>
-    <out_dir>``, with RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR /
-    MASTER_PORT set."""
+    """A rank or one process of the [multi], [bench] or --cards phases:
+    ``--multi-worker <case> <out_dir> [arguments]``, with RANK / WORLD_SIZE
+    / LOCAL_RANK / MASTER_ADDR / MASTER_PORT set for a rank."""
     import torch.distributed as dist
     from torchdriveenv_tpu_torch.parallel import mesh as pm
     from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
-    case, out_dir = args
+    case, out_dir, rest = args[0], args[1], args[2:]
     dev = "cuda" if torch.cuda.is_available() else "cpu"
     set_f32_precision()
     if case in BENCH_MESH_CASES:
@@ -2654,6 +2708,24 @@ def multi_worker(args) -> int:
                                ".json"), "w") as f:
             json.dump(res, f)
         if dist.is_initialized():
+            dist.destroy_process_group()
+        return 0
+    if case.startswith("cards"):
+        return _cards_worker(case, out_dir, rest)
+    if case.startswith("drift"):
+        # the port's precision as a user runs it: cuDNN on (off only in
+        # the yardstick's second run), its default algorithms
+        torch.backends.cudnn.enabled = case != "drift1_off"
+        mesh, name = None, case
+        if case == "drift2":
+            assert pm.maybe_init_distributed(backend="gloo",
+                                             timeout_s=MULTI_TIMEOUT_S)
+            mesh = pm.make_mesh(DRIFT_ENVS)
+            name = f"drift2_rank{dist.get_rank()}"
+        res = _drift_run(mesh, dev)
+        if pm.is_main(mesh):
+            torch.save(res, os.path.join(out_dir, f"{name}.pt"))
+        if mesh is not None:
             dist.destroy_process_group()
         return 0
     torch.backends.cudnn.deterministic = True
@@ -2673,36 +2745,153 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(phase: str, case: str, world: int, out_dir: str) -> list:
-    """Run ``world`` ranks of ``--multi-worker <case> <out_dir>`` as
-    subprocesses with torchrun's variables (RANK / WORLD_SIZE / LOCAL_RANK
-    0 / MASTER_ADDR / MASTER_PORT), each with a timeout and killed if it
-    outlives it; log the end of each rank's output and fail on a non-zero
-    exit. -> each rank's output."""
+_LAUNCH_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def launch(phase: str, jobs: list, timeout: float = MULTI_TIMEOUT_S) -> list:
+    """Start every job at once, each ``--multi-worker <arguments>`` of this
+    script: ``jobs`` is [(label, [arguments], {environment})]. Each writes
+    to its own file. All are killed when one fails (its peers would wait
+    in a collective until the process group's timeout) or when ``timeout``
+    s have passed, and the phase fails. Log the end of each output and
+    fail on a non-zero exit. -> each job's output."""
     import subprocess
-    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_RANK="0",
-               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--multi-worker", case,
-         out_dir], env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=MULTI_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        lines = [ln for ln in text.splitlines()
-                 if "warn_or_error_on_sync" not in ln]
-        for line in lines[-40:]:
-            log(f"[{phase} {case} rank {r}] {line}")
-        check(p.returncode == 0, f"[{phase}] {case} rank {r} exited "
-              f"{p.returncode}")
+    base = {k: v for k, v in os.environ.items() if k not in _LAUNCH_VARS}
+    with tempfile.TemporaryDirectory() as logs:
+        procs, files = [], []
+        for i, (_, args, env) in enumerate(jobs):
+            files.append(open(os.path.join(logs, f"{i}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--multi-worker",
+                 *args], env=dict(base, **env), stdout=files[-1],
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if (time.monotonic() > deadline
+                        or any(p.poll() for p in procs)):
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            outs = []
+            for f in files:
+                f.seek(0)
+                outs.append(f.read())
+                f.close()
+            for (label, _, _), text in zip(jobs, outs):
+                lines = [ln for ln in text.splitlines()
+                         if "warn_or_error_on_sync" not in ln]
+                for line in lines[-40:]:
+                    log(f"[{phase} {label}] {line}")
+    for (label, _, _), p in zip(jobs, procs):
+        check(p.returncode == 0, f"[{phase}] {label} exited {p.returncode}"
+              " (killed: a peer failed or the time ran out)"
+              if p.returncode == -9 else
+              f"[{phase}] {label} exited {p.returncode}")
     return outs
+
+
+def run_ranks(phase: str, case: str, world: int, out_dir: str,
+              local_is_rank: bool = False, timeout: float = MULTI_TIMEOUT_S
+              ) -> list:
+    """Run ``world`` ranks of ``--multi-worker <case> <out_dir>`` with
+    torchrun's variables (RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR /
+    MASTER_PORT): LOCAL_RANK 0 (every rank on the first card) or, with
+    ``local_is_rank``, the rank's own card. -> each rank's output."""
+    env = dict(WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()))
+    return launch(phase, [
+        (f"{case} rank {r}", [case, out_dir],
+         dict(env, RANK=str(r), LOCAL_RANK=str(r if local_is_rank else 0)))
+        for r in range(world)], timeout)
+
+
+# ---- [multi]'s drift case: a sharded SAC run over 200 train steps ---------
+DRIFT_ENVS = 64            # 32 per rank
+DRIFT_CAPACITY = 256       # ring cells per env
+DRIFT_UPDATES, DRIFT_BATCH = 2, 128
+DRIFT_STEPS = 200
+DRIFT_MARKS = (1, 2, 5, 10, 20, 50, 100, 150, 200)
+# the bound stated in PERF.md (§2 and §6): at every mark the sharded
+# run's relative distance from one process is at most this multiple of the
+# yardstick's (one process with cuDNN on against one with cuDNN off). The
+# early marks give it its reach: at step 200 every departure has grown to
+# the same size (ranks that skip the gradient all-reduce read 11 at step
+# 2 and 1.4 at step 200; PERF.md §6)
+DRIFT_BOUND = 3.0
+
+
+def _drift_run(mesh, dev) -> dict:
+    """DRIFT_STEPS train steps of the stage-1 SAC recipe shrunk to
+    DRIFT_ENVS envs, DRIFT_CAPACITY ring cells per env and DRIFT_UPDATES
+    updates of DRIFT_BATCH per train step, at the port's precision (the
+    recipe's bf16 torso; cuDNN as the caller set it) -> each step's critic
+    and actor loss, and the critic's parameters at DRIFT_MARKS, on the
+    host. The recipe freezes its actor (``actor_delay_updates``), so the
+    critic is what trains."""
+    from torchdriveenv_tpu_torch.config import construct_rl_training_config
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    from torchdriveenv_tpu_torch.parallel.train_step import make_offpolicy_train_fns
+    from torchdriveenv_tpu_torch.rl.demo import make_scripted_driver
+    from torchdriveenv_tpu_torch.rl.sac import SAC, SACConfig
+    assets = load_assets("train", device=dev)
+    cfg = construct_rl_training_config(copy.deepcopy(_SAC)).env
+    agent = SAC(SACConfig(**dict(_SAC["algo_kwargs"], batch_size=DRIFT_BATCH)))
+    init_fn, step_fn = make_offpolicy_train_fns(
+        cfg, agent, DRIFT_ENVS, buffer_capacity=DRIFT_CAPACITY,
+        steps_per_iter=RECIPE_STEPS_PER_ITER, updates_per_iter=DRIFT_UPDATES,
+        demo_fn=make_scripted_driver(cfg, assets), demo_steps=RECIPE_DEMO_STEPS,
+        demo_envs=RECIPE_DEMO_ENVS, device=dev, mesh=mesh)
+    carry = init_fn(assets, RECIPE_SEED)
+    losses, marks = [], {}
+    t0 = time.perf_counter()
+    for step in range(1, DRIFT_STEPS + 1):
+        carry, m = step_fn(assets, carry)
+        losses.append(torch.stack([m["critic_loss"], m["actor_loss"]]))
+        if step in DRIFT_MARKS:
+            marks[step] = torch.cat([
+                p.detach().float().reshape(-1)
+                for p in agent.state.critic.parameters()]).cpu()
+    return dict(losses=torch.stack(losses).float().cpu(), marks=marks,
+                wall_s=time.perf_counter() - t0,
+                cudnn=torch.backends.cudnn.enabled)
+
+
+def drift_report(sharded: dict, on: dict, off: dict) -> dict:
+    """The three curves against one process (cuDNN on) at DRIFT_MARKS: the
+    critic's relative parameter distance, and the relative gaps of the
+    critic and actor losses; for the two gloo ranks and for the yardstick
+    (one process with cuDNN off)."""
+    def distance(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    def gaps(a, b):      # (steps, 2): critic, actor
+        return ((a["losses"] - b["losses"]).abs()
+                / b["losses"].abs().clamp_min(1e-12))
+
+    out = {}
+    for label, run in (("sharded", sharded), ("yardstick", off)):
+        g = gaps(run, on)
+        out[label] = dict(
+            distance={s: distance(run["marks"][s], on["marks"][s])
+                      for s in DRIFT_MARKS},
+            critic_loss_gap={s: float(g[s - 1, 0]) for s in DRIFT_MARKS},
+            actor_loss_gap={s: float(g[s - 1, 1]) for s in DRIFT_MARKS},
+            max_critic_loss_gap=float(g[:, 0].max()),
+            max_actor_loss_gap=float(g[:, 1].max()), wall_s=run["wall_s"])
+    out["losses"] = {s: on["losses"][s - 1].tolist() for s in DRIFT_MARKS}
+    out["finite"] = all(bool(torch.isfinite(r["losses"]).all())
+                        for r in (sharded, on, off))
+    out["ratios"] = {s: out["sharded"]["distance"][s] / y
+                     for s, y in out["yardstick"]["distance"].items() if y}
+    out["ratio"] = max(out["ratios"].values())
+    out["bound"] = DRIFT_BOUND
+    return out
 
 
 def multi_phase(card) -> dict:
@@ -2726,6 +2915,7 @@ def multi_phase(card) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         w1 = run("world1", 1, tmp)
         w2 = run("world2", 2, tmp)
+        drift = drift_case(tmp, card)
 
     log(f"[multi] world 1 ({w1['backend']}): collectives issued "
         f"{w1['collectives']}; train step ms, mesh against none: SAC "
@@ -2785,7 +2975,836 @@ def multi_phase(card) -> dict:
         check(not w2[k]["one_process_syncs"],
               f"one process {k} train step synchronized: "
               f"{w2[k]['one_process_syncs']}")
-    return dict(world1=w1, world2=w2)
+    return dict(world1=w1, world2=w2, drift=drift)
+
+
+def drift_case(tmp: str, card: str) -> dict:
+    """[multi]'s drift case: two gloo ranks on the card and two single
+    processes (cuDNN on, the reference; cuDNN off, the yardstick), all four
+    started together, each taking DRIFT_STEPS train steps of the shrunk
+    stage-1 SAC recipe; the sharded run's distance from one process held
+    to DRIFT_BOUND times the yardstick's at every mark."""
+    t0 = time.perf_counter()
+    env = dict(WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()))
+    launch("multi", [(f"drift2 rank {r}", ["drift2", tmp],
+                      dict(env, RANK=str(r))) for r in range(2)]
+           + [(case, [case, tmp], {}) for case in ("drift1_on", "drift1_off")])
+    runs = {k: torch.load(os.path.join(tmp, f"{k}.pt"), weights_only=False)
+            for k in ("drift2_rank0", "drift1_on", "drift1_off")}
+    rep = drift_report(runs["drift2_rank0"], runs["drift1_on"],
+                       runs["drift1_off"])
+    rep["wall_s"] = time.perf_counter() - t0
+    last = DRIFT_MARKS[-1]
+    for label in ("sharded", "yardstick"):
+        r = rep[label]
+        log(f"[multi] drift, {label} against one process (cuDNN on), "
+            f"{DRIFT_ENVS} envs, {DRIFT_STEPS} train steps of "
+            f"{DRIFT_UPDATES} updates of {DRIFT_BATCH}: critic's relative "
+            "distance " + ", ".join(f"{s}: {v:.3e}" for s, v in
+                                   r["distance"].items())
+            + "; critic loss gap " + ", ".join(
+                f"{s}: {v:.2e}" for s, v in r["critic_loss_gap"].items())
+            + "; actor loss gap " + ", ".join(
+                f"{s}: {v:.2e}" for s, v in r["actor_loss_gap"].items())
+            + f"; run {r['wall_s']:.1f} s [{card}]")
+    log(f"[multi] drift: losses of one process (critic, actor) "
+        + ", ".join(f"{s}: {v[0]:.4g} / {v[1]:.4g}"
+                    for s, v in rep["losses"].items()))
+    log(f"[multi] drift at step {last}: sharded {rep['sharded']['distance'][last]:.3e}"
+        f", yardstick {rep['yardstick']['distance'][last]:.3e}; the sharded "
+        "distance over the yardstick's " + ", ".join(
+            f"{s}: {v:.3f}" for s, v in rep["ratios"].items())
+        + f", at most {rep['ratio']:.3f}, bound {DRIFT_BOUND} (PERF.md); "
+        f"case {rep['wall_s']:.1f} s")
+    check(rep["finite"], "drift: a non-finite loss")
+    check(rep["ratio"] <= DRIFT_BOUND,
+          f"drift: the sharded distance reaches {rep['ratio']:.3f} times the "
+          f"yardstick's, over the bound {DRIFT_BOUND}")
+    return rep
+
+
+# ---- --cards 4: the training CLI data parallel over four cards -----------
+# its ranks and its one-process runs are subprocesses of this script, each
+# rank on its own card (LOCAL_RANK = RANK) under nccl
+CARDS = 4
+CARDS_BACKEND = "nccl"
+CARDS_TIMEOUT_S = 900       # per stage
+CARD_TRAIN_STEPS = 3        # train steps of every parity run
+# the timing runs: rank 0 evaluates after the first train step while the
+# other ranks wait for it in the second, so the steps from the third on
+# are timed
+CARD_TIMED_STEPS, CARD_TIMED_FROM = 4, 2
+CARD_RESUME_AT = 2          # the snapshot resumed for the last train step
+CARD_WIDE_ENVS = 4096       # ppo_1024.yml with parallel_env_num overridden
+# run -> (recipe, global envs, held to one process in f32 with cuDNN off)
+CARD_RUNS = {
+    "ppo_wide": (PPO_YML, CARD_WIDE_ENVS, True),
+    "ppo": (PPO_YML, RECIPES[PPO_YML]["parallel_env_num"], True),
+    "sac": (SAC_YML, RECIPE_ENVS, True),
+    "ppo_wide_timed": (PPO_YML, CARD_WIDE_ENVS, False),
+    "ppo_per_card_timed": (PPO_YML, CARD_WIDE_ENVS * CARDS, False),
+    "sac_timed": (SAC_YML, RECIPE_ENVS, False),
+}
+CARD_SNAPSHOT_RUNS = ("ppo", "sac")     # resumed at CARD_RESUME_AT
+# the Adam-parity tolerance is held where the CPU tests hold it: after each
+# of a parity run's first gradient updates from one state (later updates
+# compound the rounding of other summation orders; PERF.md §6)
+CARD_PARITY_UPDATES = 3
+# ... and after the whole first updating train step, world CARDS's worst
+# element is at most this multiple of the worst of one process whose
+# batches only have their rows reordered (the same order of magnitude)
+CARD_WITNESS_ORDER = 10.0
+# stage B: every rank, in order
+CARD_MESH_JOBS = ("ppo_wide", "ppo", "ppo_resumed", "sac", "sac_resumed",
+                  "ppo_wide_timed", "ppo_per_card_timed", "sac_timed")
+# stage C: one process a card, the cards' jobs side by side (the resumed
+# runs read stage B's snapshots)
+CARD_ONE_JOBS = (("ppo_wide",), ("ppo", "ppo_resumed"),
+                 ("sac", "sac_resumed", "sac_order"),
+                 ("ppo_wide_timed", "sac_timed", "ppo_order"))
+
+
+def _card_steps_per_iter(recipe: str, envs: int) -> int:
+    raw = RECIPES[recipe]
+    if raw["algorithm"] == "ppo":
+        return envs * raw["algo_kwargs"]["n_steps"]
+    return envs * raw["offpolicy_steps_per_iter"]
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}{k}.")
+    else:
+        yield prefix.rstrip("."), tree
+
+
+def carry_close(got: dict, want: dict) -> dict:
+    """Two ``full_latest`` trees (as ``carry_to_tree`` makes them, on the
+    host): the agents at the Adam-parity tolerance, the step count and the
+    generator exact, env rows as [multi] holds them (ints and bools exact,
+    floats atol 1e-4 / rtol 1e-5, uint8 frames at most a 1e-3 share
+    apart)."""
+    agent = adam_close(got["agent"], want["agent"])
+    same = (got["env_steps"] == want["env_steps"]
+            and torch.equal(got["generator"], want["generator"]))
+    bit_equal, envs_ok, worst, share = agent["bit_equal"] and same, True, 0.0, 0.0
+    for key in ("env_state", "obs_stack", "buffer"):
+        if key not in want:
+            continue
+        g_leaves = dict(_leaves(got[key]))
+        for name, w in _leaves(want[key]):
+            g = g_leaves[name]
+            if not isinstance(w, torch.Tensor):
+                envs_ok = envs_ok and g == w
+                continue
+            eq = torch.equal(g, w)
+            bit_equal = bit_equal and eq
+            if eq:
+                continue
+            if w.dtype == torch.uint8:
+                share = max(share, float((g != w).float().mean()))
+            elif w.is_floating_point():
+                d = (g.double() - w.double()).abs()
+                worst = max(worst, float(d.max()))
+                envs_ok = envs_ok and bool(
+                    (d <= 1e-4 + 1e-5 * w.double().abs()).all())
+            else:
+                envs_ok = False
+    envs_ok = envs_ok and share <= 1e-3
+    return dict(ok=agent["ok"] and same and envs_ok, bit_equal=bit_equal,
+                agent=agent, same_step_and_generator=same, envs_ok=envs_ok,
+                max_state_err=worst, pixel_share=share)
+
+
+def _card_job(job: str, out_dir: str, world: int) -> dict:
+    """One run of the training CLI's ``train`` (``rl/train.py``) in this
+    process: ``job`` is a CARD_RUNS key, or ``<run>_resumed`` (that run
+    resumed from the world-4 snapshot at CARD_RESUME_AT for its last train
+    step, held to the world-4 run without a break). Writes under
+    ``<out_dir>/w<world>/<job>``; a ``model_*`` after every train step,
+    ``full_latest`` at CARD_RESUME_AT and at the end in a world-4 run of
+    CARD_SNAPSHOT_RUNS (each renamed ``full_latest_<env steps>``), the
+    recipe's evaluation once after the first train step, with video in
+    ``ppo_wide``. Parity runs are f32 with cuDNN off. -> per train step:
+    device ms (rollout / update split), launches, rendered batch sizes,
+    owned-row ``nonzero`` reads and the host's time in them, metrics;
+    what this process saved, its peak memory, whether the ranks' agents
+    are equal, and the resumed carry against the run without a break."""
+    import torch.distributed as dist
+    from torchdriveenv_tpu_torch import config as tconfig
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    from torchdriveenv_tpu_torch.parallel import mesh as pm
+    from torchdriveenv_tpu_torch.rl import train as train_mod
+    run = job[:-len("_resumed")] if job.endswith("_resumed") else job
+    resumed = run != job
+    recipe, envs, parity = CARD_RUNS[run]
+    spi = _card_steps_per_iter(recipe, envs)
+    w4 = os.path.join(out_dir, f"w{CARDS}", run, "ckpt")
+    here = os.path.join(out_dir, f"w{world}", job)
+    raw = copy.deepcopy(RECIPES[recipe])
+    snapshots = world > 1 and run in CARD_SNAPSHOT_RUNS and not resumed
+    steps = CARD_TRAIN_STEPS if parity else CARD_TIMED_STEPS
+    raw.update(parallel_env_num=envs, total_timesteps=steps * spi,
+               log_dir=os.path.join(here, "runs"),
+               checkpoint_dir=os.path.join(here, "ckpt"),
+               full_snapshot_every=CARD_RESUME_AT * spi if snapshots else -1)
+    raw["wandb_callback"]["model_save_freq"] = spi
+    raw["eval_val_callback"].update(n_steps=10 ** 9, record=job == "ppo_wide")
+    raw["eval_train_callback"].update(n_steps=10 ** 9)
+    cfg = tconfig.construct_rl_training_config(raw)
+    torch.backends.cudnn.enabled = not parity
+    torch.backends.cudnn.deterministic = parity
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    saved, renders, reads = [], [], []
+    plain_build, plain_save = train_mod.build_agent, train_mod._save
+    plain_launch, plain_nonzero = rc._launch, torch.nonzero
+    main = not dist.is_initialized() or dist.get_rank() == 0
+
+    def build(*a, **k):
+        agent, on_policy = plain_build(*a, **k)
+        if parity:
+            agent.compute_dtype = torch.float32
+            _snapshot_updates(agent, "_step" if on_policy else "update",
+                              lambda: len(probe.rows) + 1, here, main)
+        return agent, on_policy
+
+    def save(ckpt_dir, name, tree):
+        path = plain_save(ckpt_dir, name, tree)
+        saved.append(name)
+        if name == "full_latest":
+            os.replace(path, f"{path}_{tree['env_steps']}")
+        return path
+
+    def launch_(maps, town, *a, **k):
+        renders.append((time.perf_counter(), int(town.shape[0])))
+        return plain_launch(maps, town, *a, **k)
+
+    def nonzero(*a, **k):
+        t = time.perf_counter()
+        out = plain_nonzero(*a, **k)
+        reads.append((t, time.perf_counter() - t))
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resume_from = (os.path.join(w4, f"full_latest_{CARD_RESUME_AT * spi}")
+                   if resumed else None)
+    with probed_train(train_mod, rc) as probe:
+        train_mod.build_agent, train_mod._save = build, save
+        rc._launch, torch.nonzero = launch_, nonzero
+        try:
+            t0 = time.perf_counter()
+            carry = train_mod.train(cfg, resume_from=resume_from)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            train_mod.build_agent, train_mod._save = plain_build, plain_save
+            rc._launch, torch.nonzero = plain_launch, plain_nonzero
+    rows = []
+    for (e0, mark, e1, n), (h0, h1), m in zip(probe.rows, probe.host,
+                                              probe.metrics):
+        total = e0.elapsed_time(e1)
+        roll = e0.elapsed_time(mark) if mark is not None else total
+        in_step = [dt for t, dt in reads if h0 <= t <= h1]
+        rows.append(dict(
+            ms=total, rollout_ms=roll, update_ms=total - roll, launches=n,
+            render_batches=sorted({b for t, b in renders if h0 <= t <= h1}),
+            nonzero_reads=len(in_step), nonzero_ms=1e3 * sum(in_step),
+            host_start=h0, host_end=h1,
+            metrics={k: float(v) for k, v in m.items()}))
+    mesh = pm.make_mesh(envs)
+    out = dict(job=job, world=world, envs=envs, steps_per_iter=spi,
+               local_envs=mesh.local_envs if mesh else envs, parity=parity,
+               rows=rows, wall_s=wall, saved=saved,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card=torch.cuda.current_device(),
+               card_gb=torch.cuda.get_device_properties(dev).total_memory / 1e9)
+    if hasattr(carry, "buffer"):
+        out["ring_gb"] = carry.buffer.frames.numel() / 1e9
+    if mesh is not None:
+        state = _flat_floats(probe.agent.export_state()).to(dev)
+        first = state.clone()
+        dist.broadcast(first, src=0)
+        same = torch.tensor([int(torch.equal(state, first))], device=dev)
+        dist.all_reduce(same)
+        out["ranks_equal"] = int(same.item()) == mesh.world
+    if resumed:
+        tree = _on(train_mod.carry_to_tree(carry, probe.agent, mesh), "cpu")
+        if pm.is_main(mesh):
+            want = torch.load(
+                os.path.join(w4, f"full_latest_{CARD_TRAIN_STEPS * spi}"),
+                weights_only=True, map_location="cpu", mmap=True)
+            out["against_unbroken"] = carry_close(tree, want)
+        del tree
+    del carry
+    return out
+
+
+def _snapshot_updates(agent, name: str, train_step, here: str, main: bool):
+    """Wrap the agent's gradient update ``name`` (PPO's ``_step``, SAC's
+    ``update``): after each of the first CARD_PARITY_UPDATES of every
+    train step (``train_step()`` its number in the run), the main process
+    writes the agent's state to ``<here>/update_<train step>_<k>.pt``."""
+    plain, seen = getattr(agent, name), {}
+
+    def stepped(*a, **k):
+        out = plain(*a, **k)
+        step = train_step()
+        seen[step] = seen.get(step, 0) + 1
+        if main and seen[step] <= CARD_PARITY_UPDATES:
+            os.makedirs(here, exist_ok=True)
+            torch.save(_on(agent.export_state(), "cpu"),
+                       os.path.join(here, f"update_{step}_{seen[step]}.pt"))
+        return out
+
+    setattr(agent, name, stepped)
+
+
+def _ppo_order_witness() -> dict:
+    """One process, f32 with cuDNN off: the first PPO update of ppo_wide's
+    recipe (4 epochs of 16 minibatches of 8192 rows of 4096 envs x 32
+    steps) taken twice from one state on one rollout and the same
+    minibatches, the rows of each minibatch in two orders: the same sums,
+    added in another order. -> the two agents at the Adam-parity tolerance
+    after each of the first CARD_PARITY_UPDATES gradient steps and after
+    the whole update."""
+    from torchdriveenv_tpu_torch.config import construct_rl_training_config
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    from torchdriveenv_tpu_torch.parallel.train_step import make_onpolicy_train_fns
+    from torchdriveenv_tpu_torch.rl.ppo import PPO, PPOConfig
+    recipe, envs, _ = CARD_RUNS["ppo_wide"]
+    raw = copy.deepcopy(RECIPES[recipe])
+    kw = raw["algo_kwargs"]
+    cfg = construct_rl_training_config(raw).env
+    torch.backends.cudnn.enabled = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assets = load_assets("train", device=dev)
+    agent = PPO(PPOConfig(**kw), compute_dtype=torch.float32)
+    init_fn, step_fn = make_onpolicy_train_fns(cfg, agent, envs, device=dev)
+    carry = init_fn(assets, 0)
+    got = {}
+
+    def capture(rollout, last_value, **_):      # the rollout, no update
+        got.update(rollout=rollout, last_value=last_value,
+                   start=copy.deepcopy(agent.export_state()))
+        return {k: torch.zeros((), device=dev) for k in agent.metric_names}
+
+    agent.update = capture
+    step_fn(assets, carry)
+    del agent.update
+    n, m = kw["n_steps"] * envs, kw["batch_size"]
+    g = torch.Generator().manual_seed(0)
+    perms = torch.stack([torch.randperm(n, generator=g)
+                         for _ in range(kw["n_epochs"])])
+    reordered = perms.clone()
+    for e in range(kw["n_epochs"]):
+        for lo in range(0, n - m + 1, m):
+            reordered[e, lo:lo + m] = perms[e, lo:lo + m][
+                torch.randperm(m, generator=g)]
+    out = {}
+    for label, p in (("first", perms), ("reordered", reordered)):
+        agent.load_state(got["start"])
+        with tempfile.TemporaryDirectory() as d:
+            _snapshot_updates(agent, "_step", lambda: 1, d, True)
+            agent.update(got["rollout"], got["last_value"], perms=p.to(dev))
+            del agent._step
+            out[label] = ([torch.load(os.path.join(d, f"update_1_{k}.pt"))
+                           for k in range(1, CARD_PARITY_UPDATES + 1)],
+                          _on(agent.export_state(), "cpu"))
+    return _witness_report(out, kw["n_epochs"] * (n // m))
+
+
+def _witness_report(out: dict, steps: int) -> dict:
+    (a, whole_a), (b, whole_b) = out["first"], out["reordered"]
+    return dict(updates=[adam_close(y, x) for x, y in zip(a, b)],
+                whole=adam_close(whole_b, whole_a), gradient_steps=steps)
+
+
+def _sac_order_witness() -> dict:
+    """One process, f32 with cuDNN off: the stage-1 SAC recipe (CARD_RUNS'
+    ``sac``: 128 envs, a 3125-cell ring) up to its first train step with
+    gradient updates, whose RECIPE_UPDATES_PER_ITER sampled batches and
+    noise draws are kept; those updates then taken twice from one state,
+    the second time with each batch's rows (and their places in the
+    global batch, which index the noise) in another order: the same sums,
+    added in another order. -> the two agents at the Adam-parity tolerance
+    after each of the first CARD_PARITY_UPDATES updates and after all of
+    them."""
+    from torchdriveenv_tpu_torch.config import construct_rl_training_config
+    from torchdriveenv_tpu_torch.maps.arrays import load_assets
+    from torchdriveenv_tpu_torch.parallel.train_step import make_offpolicy_train_fns
+    from torchdriveenv_tpu_torch.rl.demo import make_scripted_driver
+    from torchdriveenv_tpu_torch.rl.sac import SAC, SACConfig
+    recipe, envs, _ = CARD_RUNS["sac"]
+    raw = copy.deepcopy(RECIPES[recipe])
+    kw = raw["algo_kwargs"]
+    cfg = construct_rl_training_config(raw).env
+    torch.backends.cudnn.enabled = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assets = load_assets("train", device=dev)
+    agent = SAC(SACConfig(**kw), compute_dtype=torch.float32)
+    init_fn, step_fn = make_offpolicy_train_fns(
+        cfg, agent, envs, buffer_capacity=kw["buffer_size"] // envs,
+        steps_per_iter=raw["offpolicy_steps_per_iter"],
+        updates_per_iter=raw["offpolicy_updates_per_iter"],
+        demo_fn=make_scripted_driver(cfg, assets),
+        demo_steps=raw["demo_warmup_steps"], demo_envs=raw["demo_envs"],
+        device=dev)
+    carry = init_fn(assets, raw["env"]["seed"])
+    got = []
+
+    def capture(batch, generator=None, mesh=None):
+        # the two noise draws update() would make, in its order; no update
+        shape = batch["action"].shape
+        got.append((batch, [torch.randn(shape, generator=generator,
+                                        device=dev) for _ in range(2)]))
+        return {k: torch.zeros((), device=dev) for k in agent.metric_names}
+
+    agent.update = capture
+    while not got:
+        start = copy.deepcopy(agent.export_state())
+        carry, _ = step_fn(assets, carry)
+    del agent.update, carry
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    for label in ("first", "reordered"):
+        agent.load_state(start)
+        snaps = []
+        for batch, noise in got:
+            if label == "reordered":
+                p = torch.randperm(len(batch["pos"]), generator=g).to(dev)
+                batch = {k: v[p] for k, v in batch.items()}
+            agent.update(batch, noise=noise)
+            if len(snaps) < CARD_PARITY_UPDATES:
+                snaps.append(_on(agent.export_state(), "cpu"))
+        out[label] = (snaps, _on(agent.export_state(), "cpu"))
+    return _witness_report(out, len(got))
+
+
+def _cards_worker(case: str, out_dir: str, args: list) -> int:
+    """``cards_mesh``: a rank of stage B, every job of CARD_MESH_JOBS in
+    one process group (LOCAL_RANK is the rank's card); ``cards_one <card>
+    <job> ...``: one process on that card, no process group. Each writes
+    its results as JSON after every job."""
+    import torch.distributed as dist
+    from torchdriveenv_tpu_torch.parallel import mesh as pm
+    if case == "cards_mesh":
+        # as the CLI joins: the backend's default timeout
+        assert pm.maybe_init_distributed(backend=CARDS_BACKEND)
+        world, jobs = dist.get_world_size(), CARD_MESH_JOBS
+        name = f"w{world}_rank{dist.get_rank()}"
+    else:
+        torch.cuda.set_device(int(args[0]))
+        world, jobs = 1, args[1:]
+        name = f"w1_card{args[0]}_{'+'.join(jobs)}"
+    # the runs' metrics go to their JSONL files; no wandb run a job
+    os.environ.setdefault("WANDB_MODE", "disabled")
+    log(f"{name}: card {torch.cuda.current_device()} of "
+        f"{torch.cuda.device_count()}, LOCAL_RANK "
+        f"{os.environ.get('LOCAL_RANK')}")
+    results = {}
+    for job in jobs:
+        if job in ("ppo_order", "sac_order"):
+            results[job] = (_ppo_order_witness() if job == "ppo_order"
+                            else _sac_order_witness())
+            log(f"{name} {job}: {results[job]}")
+        else:
+            results[job] = r = _card_job(job, out_dir, world)
+            log(f"{name} {job}: {len(r['rows'])} train steps, ms "
+                f"{[round(x['ms'], 1) for x in r['rows']]}, wall "
+                f"{r['wall_s']:.1f} s, peak {r['peak_gb']:.2f} GB")
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+            json.dump(results, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _torchrun_cli(out_dir: str) -> dict:
+    """The README's command on CARDS cards: ``python -m
+    torch.distributed.run --standalone --nproc_per_node 4 -m
+    torchdriveenv_tpu_torch.rl.train --config_file ppo_1024.yml
+    --parallel_env_num 4096 --total_timesteps <3 train steps>`` from an
+    empty directory (its ``runs/`` and ``models/`` land there), at the
+    recipe's precision, with its evaluation and video after the first train
+    step."""
+    import subprocess
+    recipe, envs, _ = CARD_RUNS["ppo_wide"]
+    total = CARD_TRAIN_STEPS * _card_steps_per_iter(recipe, envs)
+    here = os.path.join(out_dir, "torchrun")
+    os.makedirs(here)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in _LAUNCH_VARS}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={CARDS}", "-m",
+           "torchdriveenv_tpu_torch.rl.train", "--config_file",
+           os.path.join(root, recipe), "--parallel_env_num", str(envs),
+           "--total_timesteps", str(total)]
+    t0 = time.perf_counter()
+    with open(os.path.join(here, "out.log"), "w+") as f:
+        try:
+            rc = subprocess.run(cmd, cwd=here, env=env, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                timeout=CARDS_TIMEOUT_S).returncode
+        finally:
+            f.seek(0)
+            lines = f.read().splitlines()
+    wall = time.perf_counter() - t0
+    for line in lines[-30:]:
+        log(f"[cards torchrun] {line}")
+    check(rc == 0, f"[cards] torchrun exited {rc}")
+    (run_dir,) = os.listdir(os.path.join(here, "models"))
+    ckpt = sorted(os.listdir(os.path.join(here, "models", run_dir)))
+    (jsonl,) = [f for f in os.listdir(os.path.join(here, "runs"))
+                if f.endswith(".jsonl")]
+    with open(os.path.join(here, "runs", jsonl)) as f:
+        records = [json.loads(line) for line in f]
+    train = [r for r in records if "train/loss" in r]
+    spi = total // CARD_TRAIN_STEPS
+    videos = [f for d, _, fs in os.walk(os.path.join(here, "runs"))
+              for f in fs if f.endswith(".avi")]
+    return dict(command=" ".join(cmd[1:]), wall_s=wall, checkpoints=ckpt,
+                train_records=len(train),
+                # the CLI logs every max(1, 1000 // steps per iteration)
+                expected_train_records=CARD_TRAIN_STEPS // max(1, 1000 // spi),
+                eval_records=sum(any(k.startswith("eval/") for k in r)
+                                 for r in records),
+                env_steps_per_s=train[-1]["train/env_steps_per_s"] if train
+                else None, videos=videos, total=total)
+
+
+def cards_phase(card: str) -> dict:
+    """--cards 4. Stage B: CARDS ranks under nccl, each on its card, every
+    job of CARD_MESH_JOBS; stage C: the one-process runs, one card each,
+    side by side (the parity references, the world-4 snapshots resumed in
+    one process, the one-card timing runs); stage D: the README's torchrun
+    command. Then each world-4 run against one process, the resumes
+    against the run without a break, the checkpoints and the
+    evaluation."""
+    tmp = tempfile.mkdtemp(prefix="cards_")
+    try:
+        t_a = time.perf_counter()
+        run_ranks("cards", "cards_mesh", CARDS, tmp, local_is_rank=True,
+                  timeout=CARDS_TIMEOUT_S)
+        t_b = time.perf_counter()
+        launch("cards", [(f"C card {c}", ["cards_one", tmp, str(c), *jobs],
+                          {}) for c, jobs in enumerate(CARD_ONE_JOBS)],
+               CARDS_TIMEOUT_S)
+        t_c = time.perf_counter()
+        cli = _torchrun_cli(tmp)
+        t_d = time.perf_counter()
+        res = {}
+        for f in os.listdir(tmp):
+            if f.endswith(".json"):
+                with open(os.path.join(tmp, f)) as fh:
+                    res[f[:-5]] = json.load(fh)
+        out = cards_report(res, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["torchrun"] = cli
+    out["stage_s"] = dict(B=t_b - t_a, C=t_c - t_b, D=t_d - t_c)
+    log(f"[cards] torchrun CLI: exit 0 in {cli['wall_s']:.1f} s, "
+        f"checkpoints {cli['checkpoints']}, {cli['train_records']} train "
+        f"records ({cli['env_steps_per_s']} env-steps/s over the run, "
+        f"evaluation included), {cli['eval_records']} evaluations, videos "
+        f"{cli['videos']} [{card}]")
+    check(cli["checkpoints"] == ["full_latest", f"model_{cli['total']}"],
+          f"torchrun: checkpoints {cli['checkpoints']}")
+    check(cli["train_records"] == cli["expected_train_records"]
+          and cli["eval_records"]
+          and cli["videos"], "torchrun: records or video missing")
+    log(f"[cards] stages (s): {out['stage_s']}")
+    return out
+
+
+def _metrics_close(got: dict, want: dict) -> bool:
+    return sorted(got) == sorted(want) and all(
+        abs(got[k] - want[k]) <= METRIC_TOL["atol"]
+        + METRIC_TOL["rtol"] * abs(want[k]) for k in want)
+
+
+def _timing(rows: list, spi: int) -> dict:
+    """The mean of the train steps from CARD_TIMED_FROM on."""
+    rest = rows[CARD_TIMED_FROM:]
+    ms = sum(r["ms"] for r in rest) / len(rest)
+    upd = sum(r["update_ms"] for r in rest) / len(rest)
+    nz = sum(r["nonzero_ms"] for r in rest) / len(rest)
+    return dict(ms=ms, rollout_ms=ms - upd, update_ms=upd,
+                env_steps_per_s=spi / ms * 1e3,
+                nonzero_reads=rest[-1]["nonzero_reads"], nonzero_ms=nz,
+                nonzero_share_of_update=nz / upd if upd else 0.0)
+
+
+def _first_updating_step(d: str) -> int:
+    """The first train step of a run with gradient updates (SAC's first
+    warms up)."""
+    return min(int(f.split("_")[1]) for f in os.listdir(d)
+               if f.startswith("update_"))
+
+
+def _updates_close(got_dir: str, got_step: int, want_dir: str,
+                   want_step: int) -> list:
+    """adam_close of the agents after each of the first CARD_PARITY_UPDATES
+    gradient updates of two train steps (``_snapshot_updates``' files)."""
+    def load(d, step, k):
+        return torch.load(os.path.join(d, f"update_{step}_{k}.pt"),
+                          weights_only=True)
+    return [adam_close(load(got_dir, got_step, k), load(want_dir, want_step, k))
+            for k in range(1, CARD_PARITY_UPDATES + 1)]
+
+
+def _close_text(c: dict) -> str:
+    return (f"{'ok' if c['ok'] else 'OVER'} ({c['elements_over_tol']} over, "
+            f"worst {c['worst'] or '-'} {c['worst_over_tol']:.3g})")
+
+
+def cards_report(res: dict, tmp: str, card: str) -> dict:
+    """Hold the world-CARDS runs to one process and to themselves: every
+    comparison is made and logged first, then checked."""
+    import torch.distributed.constants as dc
+    from torchdriveenv_tpu_torch.config import EnvConfig
+    pool = EnvConfig().reset_pool     # the recipes' pooled reset renders it
+    ranks = [res[f"w{CARDS}_rank{r}"] for r in range(CARDS)]
+    one = {}
+    for k, v in res.items():
+        if k.startswith("w1_card"):
+            one.update(v)
+    w4, w1 = os.path.join(tmp, f"w{CARDS}"), os.path.join(tmp, "w1")
+    out = dict(backend=CARDS_BACKEND, world=CARDS, runs={}, resume={})
+    checks = []
+    for run in ("ppo_wide", "ppo", "sac"):
+        recipe, envs, _ = CARD_RUNS[run]
+        spi = _card_steps_per_iter(recipe, envs)
+        env_steps = spi // envs
+        r0, ref = ranks[0][run], one[run]
+        # held: the first gradient updates from one state; reported: the
+        # runs after each whole train step, and their metrics
+        start = _first_updating_step(os.path.join(w4, run))
+        first = _updates_close(os.path.join(w4, run), start,
+                               os.path.join(w1, run), start)
+        steps = [adam_close(*(torch.load(os.path.join(
+            d, run, "ckpt", f"model_{k * spi}"), weights_only=True,
+            map_location="cpu") for d in (w4, w1)))
+            for k in range(1, CARD_TRAIN_STEPS + 1)]
+        metrics_ok = [_metrics_close(g["metrics"], w["metrics"])
+                      for g, w in zip(r0["rows"], ref["rows"])]
+        launches = [[row["launches"] for row in r[run]["rows"]]
+                    for r in ranks]
+        batches = [sorted({b for row in r[run]["rows"]
+                           for b in row["render_batches"]}) for r in ranks]
+        local = r0["local_envs"]
+        rep = dict(
+            envs=envs, local_envs=local, first_updating_step=start,
+            first_updates=first, train_steps=steps, metrics_ok=metrics_ok,
+            metrics=[[g["metrics"], w["metrics"]]
+                     for g, w in zip(r0["rows"], ref["rows"])],
+            ranks_equal=[r[run]["ranks_equal"] for r in ranks],
+            launches=launches, render_batches=batches,
+            saved=[r[run]["saved"] for r in ranks],
+            peak_gb=[r[run]["peak_gb"] for r in ranks],
+            one_process_peak_gb=ref["peak_gb"],
+            ms=[[round(row["ms"], 1) for row in r[run]["rows"]] for r in ranks],
+            one_process_ms=[round(row["ms"], 1) for row in ref["rows"]])
+        if "ring_gb" in r0:
+            rep.update(ring_gb_per_rank=r0["ring_gb"],
+                       ring_gb_global=r0["ring_gb"] * CARDS,
+                       card_gb=r0["card_gb"])
+        out["runs"][run] = rep
+        log(f"[cards] {run} ({recipe}, {envs} envs, {local} a card, f32, "
+            f"cuDNN off), world {CARDS} ({CARDS_BACKEND}) against one "
+            f"process: ranks equal {rep['ranks_equal']}; after each of the "
+            f"first {CARD_PARITY_UPDATES} gradient updates "
+            + ", ".join(_close_text(c) for c in first)
+            + f"; after each of {CARD_TRAIN_STEPS} train steps "
+            + ", ".join(_close_text(c) for c in steps)
+            + f"; metrics within rtol 1e-4 / atol 1e-5 {metrics_ok}; "
+            f"rasterizer launches per train step per rank {launches} "
+            f"({env_steps} env steps), rendered batches {batches}; saved by "
+            f"rank {[len(x) for x in rep['saved']]}; peak GB per rank "
+            f"{[round(x, 2) for x in rep['peak_gb']]} (one process "
+            f"{ref['peak_gb']:.2f}); train step ms per rank {rep['ms']}, one "
+            f"process {rep['one_process_ms']} [{card}]")
+        checks += [
+            (all(rep["ranks_equal"]), f"{run}: the ranks' agents differ"),
+            (all(c["ok"] for c in first),
+             f"{run}: world {CARDS} differs from one process within its first "
+             f"{CARD_PARITY_UPDATES} gradient updates: {first}"),
+            (all(n == 2 * env_steps for ls in launches for n in ls),
+             f"{run}: rasterizer launches {launches}"),
+            (all(local in b and max(b) <= max(local, pool) for b in batches),
+             f"{run}: rendered batches {batches}"),
+            (all(not x for x in rep["saved"][1:])
+             and any(n.startswith("model_") for n in rep["saved"][0]),
+             f"{run}: saved {rep['saved']}")]
+        if run in CARD_SNAPSHOT_RUNS:
+            checks.append((rep["saved"][0].count("full_latest") == 2,
+                           f"{run}: full_latest written {rep['saved'][0]}"))
+    if "ring_gb_per_rank" in out["runs"]["sac"]:
+        s = out["runs"]["sac"]
+        log(f"[cards] the replay ring: {s['ring_gb_per_rank']:.2f} GB of "
+            f"frames a card, {s['ring_gb_global']:.2f} GB gathered on every "
+            f"card for full_latest; peak allocated per card "
+            f"{[round(x, 2) for x in s['peak_gb']]} GB of {s['card_gb']:.1f}")
+
+    for run in CARD_SNAPSHOT_RUNS:
+        want = ranks[0][run]["rows"][-1]["metrics"]
+        for label, r, d in ((f"world {CARDS}", ranks[0], w4),
+                            ("one process", one, w1)):
+            got = r[f"{run}_resumed"]
+            c = got["against_unbroken"]
+            rep = dict(c, first_updates=_updates_close(
+                os.path.join(d, f"{run}_resumed"), 1, os.path.join(w4, run),
+                CARD_TRAIN_STEPS),
+                metrics_ok=_metrics_close(got["rows"][-1]["metrics"], want),
+                train_steps=len(got["rows"]))
+            out["resume"][f"{run} {label}"] = rep
+            log(f"[cards] {run}: world-{CARDS} full_latest at train step "
+                f"{CARD_RESUME_AT} resumed in {label} for one train step, "
+                f"against the world-{CARDS} run without a break: after each of "
+                f"the first {CARD_PARITY_UPDATES} gradient updates "
+                + ", ".join(_close_text(x) for x in rep["first_updates"])
+                + f"; after the train step: bit-equal {rep['bit_equal']}, "
+                f"agent {_close_text(rep['agent'])}, step count and generator "
+                f"equal {rep['same_step_and_generator']}, env rows, frames "
+                f"and replay ring ok {rep['envs_ok']} (max error "
+                f"{rep['max_state_err']:.2e}, frames apart "
+                f"{rep['pixel_share']:.2e}), metrics ok {rep['metrics_ok']}")
+            held = (rep["train_steps"] == 1
+                    and all(x["ok"] for x in rep["first_updates"])
+                    and rep["same_step_and_generator"] and rep["envs_ok"])
+            if r is not one:    # the same ranks and order: the same run
+                held = held and rep["bit_equal"]
+            checks.append((held, f"{run} resumed in {label}: {rep}"))
+
+    # the evaluation after the first train step: rank 0 evaluates and
+    # records video while the others wait in their next collective
+    wide = [r["ppo_wide"]["rows"] for r in ranks]
+    gap = wide[0][1]["host_start"] - wide[0][0]["host_end"]
+    timeout = getattr(dc, "default_pg_nccl_timeout", None)
+    out["evaluation"] = dict(
+        rank0_gap_s=gap, second_step_ms=[rows[1]["ms"] for rows in wide],
+        third_step_ms=[rows[2]["ms"] for rows in wide],
+        nccl_default_timeout_s=timeout.total_seconds() if timeout else None)
+    episodes = [RECIPES[PPO_YML][k]["eval_n_episodes"]
+                for k in ("eval_val_callback", "eval_train_callback")]
+    log(f"[cards] ppo_wide's evaluation ({episodes[0]} + {episodes[1]} "
+        f"episodes, one video) on rank 0 between train steps 1 and 2: "
+        f"{gap:.1f} s; the second train "
+        f"step per rank {[round(x) for x in out['evaluation']['second_step_ms']]}"
+        f" ms (the third {[round(x) for x in out['evaluation']['third_step_ms']]})"
+        f"; nccl's default timeout {out['evaluation']['nccl_default_timeout_s']}"
+        f" s [{card}]")
+
+    # the witnesses of summation order: one process, a first updating
+    # train step's updates twice from one state, the second time with the
+    # rows of each batch in another order. World CARDS's departure from
+    # one process after that train step is held to the same order as the
+    # witness's
+    out["order_witness"] = {}
+    for run, job in (("ppo_wide", "ppo_order"), ("sac", "sac_order")):
+        w, r = one[job], out["runs"][run]
+        sharded = r["train_steps"][r["first_updating_step"] - 1]
+        ratio = sharded["worst_over_tol"] / max(w["whole"]["worst_over_tol"],
+                                                1e-30)
+        out["order_witness"][run] = dict(w, world_against_one=sharded,
+                                         ratio=ratio)
+        log(f"[cards] one process, {run}'s first updating train step "
+            f"twice from one state with each batch's rows in another order "
+            f"(the same sums): after each of the first "
+            f"{CARD_PARITY_UPDATES} gradient updates "
+            + ", ".join(_close_text(c) for c in w["updates"])
+            + f"; after all {w['gradient_steps']}: {_close_text(w['whole'])}"
+            f"; world {CARDS} against one process after that train step: "
+            f"{_close_text(sharded)}, {ratio:.3g} times the witness's worst "
+            f"(held to at most {CARD_WITNESS_ORDER})")
+        checks += [
+            (all(c["ok"] for c in w["updates"]),
+             f"{run}: reordered rows left the tolerance within "
+             f"{CARD_PARITY_UPDATES} updates: {w['updates']}"),
+            (ratio <= CARD_WITNESS_ORDER,
+             f"{run}: world {CARDS} departs {ratio:.3g} times as far as "
+             f"reordered rows in one process, over {CARD_WITNESS_ORDER}")]
+
+    out["timing"] = {}
+    for run in ("ppo_wide_timed", "ppo_per_card_timed", "sac_timed"):
+        recipe, envs, _ = CARD_RUNS[run]
+        spi = _card_steps_per_iter(recipe, envs)
+        per_rank = [_timing(r[run]["rows"], spi) for r in ranks]
+        # the ranks meet in every update's collectives: the slowest sets
+        # the pace
+        t = dict(world=max(per_rank, key=lambda x: x["ms"]),
+                 world_per_rank=per_rank, envs=envs,
+                 launches=[[row["launches"] for row in r[run]["rows"]]
+                           for r in ranks])
+        if run in one:
+            t["one_process"] = _timing(one[run]["rows"], spi)
+        out["timing"][run] = t
+        x = t["world"]
+        ms = [p["ms"] for p in per_rank]
+        share = [p["nonzero_share_of_update"] for p in per_rank]
+        log(f"[cards] {run} ({envs} envs, the recipe's precision, train "
+            f"steps {CARD_TIMED_FROM + 1}-{CARD_TIMED_STEPS}): world {CARDS}"
+            f", the slowest rank {x['ms']:.1f} ms a train step = rollout "
+            f"{x['rollout_ms']:.1f} + update {x['update_ms']:.1f}, "
+            f"{x['env_steps_per_s']:.0f} env-steps/s (ranks {min(ms):.1f}-"
+            f"{max(ms):.1f} ms); owned-row nonzero reads "
+            f"{x['nonzero_reads']} a step, the host's wait in them "
+            f"{min(share):.4f}-{max(share):.4f} of the update over the ranks"
+            + (f"; one process {t['one_process']['ms']:.1f} ms = "
+               f"{t['one_process']['rollout_ms']:.1f} + "
+               f"{t['one_process']['update_ms']:.1f}, "
+               f"{t['one_process']['env_steps_per_s']:.0f} env-steps/s"
+               if "one_process" in t else "") + f" [{card}]")
+        checks.append((all(n == 2 * spi // envs for ls in t["launches"]
+                           for n in ls),
+                       f"{run}: rasterizer launches {t['launches']}"))
+    for ok, msg in checks:
+        check(ok, msg)
+    return out
+
+
+def all_cards() -> list:
+    """`nvidia-smi --query-gpu=name,power.limit` of every card."""
+    import subprocess
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+
+
+def cards_main() -> int:
+    """``python3 chip_smoke.py --cards 4``: build the kernels, then
+    cards_phase; the same last line as the default run."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this test runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() < CARDS:
+        print(f"chip_smoke --cards {CARDS}: {torch.cuda.device_count()} "
+              "card(s) visible", file=sys.stderr)
+        return 2
+    from torchdriveenv_tpu_torch.ops import _build
+    cards = all_cards()
+    card = cards[0]
+    log(f"cards: {cards}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"[build] {time.perf_counter() - t0:.1f} s")
+    out = cards_phase(card)
+    print(json.dumps({"cards_path": dict(out, cards=cards)}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 # ---- the [parity] phase: the port held to the JAX reference on the card,
@@ -3433,4 +4452,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multi-worker"]:
         sys.exit(multi_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cards"]:
+        if sys.argv[2:] != [str(CARDS)]:
+            sys.exit(f"chip_smoke: --cards {CARDS} is the one multi-card mode")
+        sys.exit(cards_main())
     sys.exit(main())

@@ -37,8 +37,6 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-_distributed_initialized = False
-
 
 def maybe_init_distributed(backend: Optional[str] = None,
                            init_method: Optional[str] = None,
@@ -54,9 +52,7 @@ def maybe_init_distributed(backend: Optional[str] = None,
     ``init_method``: ``env://`` unless named (e.g. ``file://<path>``).
     On the card, ``torch.cuda.set_device(LOCAL_RANK)`` first. Re-entry is
     guarded: returns True when the group is (already) up."""
-    global _distributed_initialized
-    if _distributed_initialized or dist.is_initialized():
-        _distributed_initialized = True
+    if dist.is_initialized():
         return True
     env = os.environ
     if "RANK" in env and "WORLD_SIZE" in env:
@@ -81,7 +77,6 @@ def maybe_init_distributed(backend: Optional[str] = None,
     dist.init_process_group(backend=backend,
                             init_method=init_method or "env://",
                             rank=rank, world_size=world, **kw)
-    _distributed_initialized = True
     return True
 
 

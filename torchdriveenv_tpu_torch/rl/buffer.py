@@ -141,7 +141,9 @@ def _stack_at(buf: ReplayBuffer, env_idx: torch.Tensor, idx: torch.Tensor,
     offs = torch.minimum(offs[None, :], age[:, None])   # clamp at episode start
     ids = torch.remainder(idx[:, None] - offs, n)                    # (B, S)
     f = buf.frames[env_idx[:, None], ids]                            # (B, S, C, H, W)
-    return f.reshape((f.shape[0], -1) + f.shape[3:])
+    # the stack's width is spelled out: a rank of a mesh may own none of
+    # a sampled batch's rows, and a -1 cannot be inferred from 0 elements
+    return f.reshape((f.shape[0], frame_stack * f.shape[2]) + f.shape[3:])
 
 
 def sample(buf: ReplayBuffer, batch_size: int, frame_stack: int = 3,

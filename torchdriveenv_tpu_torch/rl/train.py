@@ -451,8 +451,11 @@ def main(argv=None):
                     "(cross-env-count, unlike --resume_from)")
     ap.add_argument("--max_wall_s", type=float, default=None)
     args = ap.parse_args(argv)
-    # first: join the process group a launcher (torchrun, SLURM) set up
-    maybe_init_distributed()
+    # first: join the process group a launcher (torchrun, SLURM) set up;
+    # the group this call joins is destroyed when the run ends (nccl warns
+    # of leaked resources at exit otherwise)
+    joined = (not torch.distributed.is_initialized()
+              and maybe_init_distributed())
 
     if args.config_file:
         cfg = load_rl_training_config(args.config_file)
@@ -464,8 +467,11 @@ def main(argv=None):
         cfg.total_timesteps = int(args.total_timesteps)
     if args.parallel_env_num is not None:
         cfg.parallel_env_num = args.parallel_env_num
-    return train(cfg, resume_from=args.resume_from,
-                 max_wall_s=args.max_wall_s, init_model=args.init_model)
+    carry = train(cfg, resume_from=args.resume_from,
+                  max_wall_s=args.max_wall_s, init_model=args.init_model)
+    if joined:
+        torch.distributed.destroy_process_group()
+    return carry
 
 
 if __name__ == "__main__":
