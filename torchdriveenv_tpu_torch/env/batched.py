@@ -19,6 +19,7 @@ from torchdriveenv_tpu_torch.maps.arrays import Assets, resolve_device
 from torchdriveenv_tpu_torch.npc.policy_net import NpcGRU, default_params
 from torchdriveenv_tpu_torch.ops.rasterizer_cuda import render_observation
 from torchdriveenv_tpu_torch.parallel.mesh import Mesh, offset_of
+from torchdriveenv_tpu_torch.utils import spans
 
 
 class StepOutput(NamedTuple):
@@ -84,6 +85,7 @@ def _autoreset(cfg: EnvConfig, assets: Assets, next_state: core.EnvState,
 
     Returns (out_state, fresh_pool or None, pool_idx or None).
     """
+    spans.count("envs_reset", done)
     b = mesh.num_envs if mesh is not None else done.shape[0]
     pool = cfg.reset_pool
     if pool and pool < b:
@@ -127,9 +129,10 @@ def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
         npc_params = default_params(dev)
 
     def obs_of(state: core.EnvState) -> torch.Tensor:
-        if render:
-            return _obs_batched(cfg, assets, state)
-        return _no_obs(state.town.shape[0], cfg, dev)
+        with spans.span("env.render"):
+            if render:
+                return _obs_batched(cfg, assets, state)
+            return _no_obs(state.town.shape[0], cfg, dev)
 
     def reset_fn(generator: torch.Generator, num_envs: int,
                  cases: Optional[torch.Tensor] = None):
@@ -143,28 +146,32 @@ def make_env_fns(cfg: EnvConfig, assets: Assets, render: bool = True,
     @torch.no_grad()
     def step_fn(state: core.EnvState, actions: torch.Tensor,
                 generator: torch.Generator) -> StepOutput:
-        next_state, reward, term, trunc, info = core.step(
-            cfg, assets, state, actions, npc_params=npc_params)
-        done = term | trunc
-        if not with_final_obs:
-            out_state, _, _ = _autoreset(cfg, assets, next_state, done,
-                                         generator, mesh)
-            return StepOutput(out_state, obs_of(out_state), reward, term,
-                              trunc, info)
+        with spans.span("env.step"):
+            with spans.span("env.core"):
+                next_state, reward, term, trunc, info = core.step(
+                    cfg, assets, state, actions, npc_params=npc_params)
+            done = term | trunc
+            if not with_final_obs:
+                with spans.span("env.autoreset"):
+                    out_state, _, _ = _autoreset(cfg, assets, next_state,
+                                                 done, generator, mesh)
+                return StepOutput(out_state, obs_of(out_state), reward, term,
+                                  trunc, info)
 
-        final_obs = obs_of(next_state)
-        out_state, fresh_pool, idx = _autoreset(cfg, assets, next_state, done,
-                                                generator, mesh)
-        if not render:
-            obs = final_obs
-        else:
-            d = done[:, None, None, None]
-            if fresh_pool is not None:
-                obs = torch.where(d, obs_of(fresh_pool)[idx], final_obs)
+            final_obs = obs_of(next_state)
+            with spans.span("env.autoreset"):
+                out_state, fresh_pool, idx = _autoreset(
+                    cfg, assets, next_state, done, generator, mesh)
+            if not render:
+                obs = final_obs
             else:
-                obs = torch.where(d, obs_of(out_state), final_obs)
-        return StepOutput(out_state, obs, reward, term, trunc, info,
-                          final_obs=final_obs)
+                d = done[:, None, None, None]
+                if fresh_pool is not None:
+                    obs = torch.where(d, obs_of(fresh_pool)[idx], final_obs)
+                else:
+                    obs = torch.where(d, obs_of(out_state), final_obs)
+            return StepOutput(out_state, obs, reward, term, trunc, info,
+                              final_obs=final_obs)
 
     return reset_fn, step_fn
 

@@ -46,6 +46,7 @@ from torchdriveenv_tpu_torch.ops.offroad import compute_offroad
 from torchdriveenv_tpu_torch.ops.traffic_lights import traffic_light_violation
 from torchdriveenv_tpu_torch.ops.waypoints import waypoint_reached
 from torchdriveenv_tpu_torch.parallel.mesh import Mesh, shard_carry
+from torchdriveenv_tpu_torch.utils import spans
 
 # action bounds [accel, steer]
 ACTION_LOW = (-1.0, -0.3)
@@ -409,16 +410,17 @@ def step(cfg: EnvConfig, assets: Assets, state: EnvState,
     npc_hidden = state.npc_hidden
     npc_args = (maps, state.town, t_now, state.agent_states, state.agent_attrs,
                 state.present, state.npc_target_speed)
-    if cfg.npc_mode == "policy":
-        if npc_hidden is None:
-            raise ValueError("npc_mode='policy' needs a state with npc_hidden "
-                             "(one reset in policy mode)")
-        policy = (npc_params if npc_params is not None
-                  else policy_net.default_params(action.device))
-        npc_act, npc_hidden = policy_net.npc_policy_actions(
-            policy, *npc_args, npc_hidden)
-    else:
-        npc_act = npc_actions(*npc_args)
+    if cfg.npc_mode == "policy" and npc_hidden is None:
+        raise ValueError("npc_mode='policy' needs a state with npc_hidden "
+                         "(one reset in policy mode)")
+    with spans.span("env.npc"):
+        if cfg.npc_mode == "policy":
+            policy = (npc_params if npc_params is not None
+                      else policy_net.default_params(action.device))
+            npc_act, npc_hidden = policy_net.npc_policy_actions(
+                policy, *npc_args, npc_hidden)
+        else:
+            npc_act = npc_actions(*npc_args)
     low = device_constant(ACTION_LOW, action.device)
     high = device_constant(ACTION_HIGH, action.device)
     ego_act = torch.clamp(action, min=low, max=high)

@@ -49,6 +49,7 @@ from torchdriveenv_tpu_torch.ops.rasterizer import (
     top_k_indices,
 )
 from torchdriveenv_tpu_torch.ops.traffic_lights import light_states_at
+from torchdriveenv_tpu_torch.utils import spans
 
 SEG_CHUNK = 8       # segments per vectorized step of the twin
 KERNEL_RES = 64     # the kernel's pixel layout: 4 x 4 tiles of CULL_TILE^2
@@ -556,9 +557,10 @@ def render_observation(maps: MapArrays, town, t, agent_states, agent_attrs,
     device), "torch" (the plain twin), or "auto" (the kernel for CUDA
     inputs, the twin for CPU inputs).
     """
-    prep = prepare_obs_inputs(maps, town, t, agent_states, agent_attrs,
-                              present, waypoints, target_idx, n_waypoints,
-                              fov=fov)
+    with spans.span("env.render_inputs"):
+        prep = prepare_obs_inputs(maps, town, t, agent_states, agent_attrs,
+                                  present, waypoints, target_idx, n_waypoints,
+                                  fov=fov)
     if backend == "auto":
         backend = "cuda" if agent_states.is_cuda else "torch"
     if backend == "cuda":

@@ -33,6 +33,7 @@ from torchdriveenv_tpu_torch.parallel.mesh import (
 from torchdriveenv_tpu_torch.rl import buffer as replay
 from torchdriveenv_tpu_torch.rl.ppo import bootstrap_truncated_rewards
 from torchdriveenv_tpu_torch.rl.rollout import RolloutState, init_stack, update_stack
+from torchdriveenv_tpu_torch.utils import spans
 
 
 def _check_device(assets: Assets, dev: torch.device) -> None:
@@ -129,6 +130,11 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
 
     def train_step_fn(assets: Assets, carry: OffPolicyCarry
                       ) -> Tuple[OffPolicyCarry, Dict[str, torch.Tensor]]:
+        with spans.span("train.step"):
+            return _train_step(assets, carry)
+
+    def _train_step(assets: Assets, carry: OffPolicyCarry
+                    ) -> Tuple[OffPolicyCarry, Dict[str, torch.Tensor]]:
         _check_device(assets, dev)
         _, step_fn = make_env_fns(env_cfg, assets, render=True,
                                   with_final_obs=True, mesh=mesh)
@@ -143,8 +149,8 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
 
         rs, buf = carry.rollout, carry.buffer
         rewards = []
-        for _ in range(steps_per_iter):
-            with torch.no_grad():
+        with spans.span("train.env"), torch.no_grad():
+            for _ in range(steps_per_iter):
                 if warmup:
                     a = draw_env_rows(
                         lambda n: torch.rand((n, 2), generator=g, device=d),
@@ -166,7 +172,7 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                                  demo_mask=demo_mask)
                 rs = RolloutState(out.state,
                                   update_stack(rs.obs_stack, out.obs, done))
-            rewards.append(out.reward)
+                rewards.append(out.reward)
 
         if warmup:
             zero = torch.zeros((), device=d)
@@ -174,9 +180,11 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
         else:
             rows = []
             for _ in range(updates_per_iter):
-                batch = replay.sample(buf, agent.cfg.batch_size, fs,
-                                      generator=g, mesh=mesh)
-                rows.append(agent.update(batch, generator=g, mesh=mesh))
+                with spans.span("train.sample"):
+                    batch = replay.sample(buf, agent.cfg.batch_size, fs,
+                                          generator=g, mesh=mesh)
+                with spans.span("train.update"):
+                    rows.append(agent.update(batch, generator=g, mesh=mesh))
             metrics = {k: torch.stack([r[k] for r in rows]).mean()
                        for k in rows[0]}
         metrics["mean_step_reward"] = global_mean(
