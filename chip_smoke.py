@@ -62,9 +62,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              with the compiled maps: at most a 1e-3 share of pixels apart
              from the shipped maps' frames.
   3. main    drive the port's main path, BatchedEnv.step at 4096 envs with
-             the default EnvConfig, with the launch counts set to 0 just
-             before and read just after; the kernel must have launched once
-             per render. Then 4 steps with with_final_obs=True.
+             the default EnvConfig: 32 timed steps, then 32 more under
+             torch.profiler, in which the kernel must have run once per
+             render (its render_obs_kernel events; the step replays CUDA
+             graphs, so the host launches it none). Then 4 steps with
+             with_final_obs=True: the host launches the kernel in the first
+             two (the eager step and the capture), the trace of the last
+             two holds its four runs.
   3a. bench the bench's entry point (python -m torchdriveenv_tpu_torch.bench)
              in its two modes. --breakdown at 4096 route-mode envs, chunks
              of 16, 3 timed: the step's least bytes and operations counted
@@ -75,18 +79,19 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              variables) and two gloo ranks sharing the card (rank 0 also
              writes the breakdown of its rows), each against one process of
              the same seed and steps: the frames' checksum summed over the
-             ranks exact, the rewards' within rtol 1e-5. The kernel's launch
-             count is set to 0 before each run and read after.
+             ranks exact, the rewards' within rtol 1e-5. Each run is traced
+             with torch.profiler and the kernel's runs counted in it.
   4. npc   the GRU NPC policy. (a) The shipped weights on the 4096-env
              policy-mode batch after 8 steps, card (TF32 off) against the
              CPU: atol 1e-5 on actions and hidden state, on the card's own
              features and through the features for every agent whose
              features agree (the others, a share of at most 1e-4, are
              counted). (b) BatchedEnv(EnvConfig(npc_mode="policy")) at 4096
-             envs: 32 timed steps with 32 launches, frames equal to the
-             twin's, npc_hidden finite, non-zero for present NPCs and zero
-             in restarted envs; one step with no synchronizing call; 4 steps
-             with with_final_obs (8 launches).
+             envs: 32 timed steps, then 32 traced with 32 kernel runs and
+             no host launch, frames equal to the twin's, npc_hidden finite,
+             non-zero for present NPCs and zero in restarted envs; one step
+             with no synchronizing call; 4 steps with with_final_obs, as in
+             [main].
   5. gym   render_egocentric (the SDF-grid birdview) on the card against the
              CPU on the main path's 4096 envs at 64 px (at most a 1e-3 share
              of pixels may differ), timed there and at 1024 px / 500 m; then,
@@ -101,9 +106,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              term, frozen actor): 6 train steps, then 2 with the demo phase
              over; then 3 train steps of default SAC from fresh weights.
              (c) The evaluator: the deliverable actor over 25 validation
-             episodes of 200 steps. Launch counts are set to 0 before each
-             train step and before the evaluation and read after: 2 per env
-             step in training, 1 per step in evaluation.
+             episodes of 200 steps, then again under torch.profiler. The
+             rasterizer's host launches are counted in each train step and
+             in the evaluation: a new step function launches it in its first
+             two calls (the eager one and the capture of its CUDA graphs)
+             and never after; the kernel's runs are counted in a trace of a
+             train step (2 per env step) and of the second evaluation (1
+             per step).
   7. train   the training CLI's function (rl/train.py:train) on the card,
              from configs that equal the repo's YAML files (RECIPES below;
              where PyYAML imports, the files themselves are loaded and
@@ -118,14 +127,17 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              the GRU driving every NPC (artifacts/sac_npcpolicy_run.yml: 128
              envs, a 4.9 GB ring, 64 updates of 512) for 3 train steps, its
              npc_hidden carried. Every train step is timed with CUDA events
-             (rollout / update split at the first agent.update) and must
-             launch the rasterizer twice per env step; one PPO train step
-             must make no synchronizing call. Then PPO train steps in turns
-             at torch's default precision (cuDNN TF32) and the port's f32.
+             (rollout / update split at the first agent.update) and its
+             rasterizer host launches counted (those of the env step's first
+             two calls, then none); after each run one more train step is
+             traced, in which the kernel must run twice per env step; one
+             PPO train step must make no synchronizing call. Then PPO train
+             steps in turns at torch's default precision (cuDNN TF32) and
+             the port's f32.
   8. tools   the user workflow around training, in the deliverable's order
              (TRAINING.md:226-231). tools/bc_pretrain at the deliverable's
              width: 128 envs x 600 scripted steps = 76,800 frame stacks
-             (2.83 GB) kept on the card, one rasterizer launch per step;
+             (2.83 GB) kept on the card;
              3000 BC steps of 512 with no synchronizing call in a step and
              a falling action-MSE; the warm start written. rl.train.train
              of artifacts/sac_stage1_run.yml with init_model = that file for
@@ -889,8 +901,8 @@ def learner_phase(assets, env, state, act, card) -> dict:
     mark_first_update(agent)
 
     def timed_train_step(step_fn, carry):
-        """-> (carry, metrics as floats, launches, total / env / update ms
-        on the device's clock, wall ms)."""
+        """-> (carry, metrics as floats, the rasterizer's host launches,
+        total / env / update ms on the device's clock, wall ms)."""
         marks.clear()
         torch.cuda.synchronize()
         rc.render_obs_cuda.launches = 0
@@ -915,10 +927,11 @@ def learner_phase(assets, env, state, act, card) -> dict:
         rows.append((total, env_ms, upd_ms, wall))
         log(f"[learner] recipe train step {it + 1}: {total:.1f} ms on the "
             f"device's clock ({wall:.1f} ms wall) = env steps {env_ms:.1f} + "
-            f"updates {upd_ms:.1f}; rasterizer launches {n_launch}; "
+            f"updates {upd_ms:.1f}; rasterizer host launches {n_launch}; "
             + ", ".join(f"{k} {v:.4g}" for k, v in m.items()) + f" [{card}]")
-        check(n_launch == 2 * RECIPE_STEPS_PER_ITER,
-              f"{n_launch} rasterizer launches in a train step")
+        check(n_launch == host_launches(it * RECIPE_STEPS_PER_ITER,
+                                        RECIPE_STEPS_PER_ITER),
+              f"{n_launch} rasterizer host launches in train step {it + 1}")
         check(all(math.isfinite(v) for v in m.values()), "non-finite metric")
         if it == 0:                 # warmup: zero metrics, the agent unchanged
             check(all(m[k] == 0.0 for k in SAC.metric_names), "warmup metrics")
@@ -950,7 +963,9 @@ def learner_phase(assets, env, state, act, card) -> dict:
         cfg, agent, RECIPE_ENVS, demo_steps=0, **fns)
     for it in range(2):
         carry, m, n_launch, *_ = timed_train_step(train_step_late, carry)
-        check(n_launch == 2 * RECIPE_STEPS_PER_ITER, "launches, late step")
+        check(n_launch == host_launches(it * RECIPE_STEPS_PER_ITER,
+                                        RECIPE_STEPS_PER_ITER),
+              "host launches, late step")
         check(all(math.isfinite(v) for v in m.values()), "non-finite metric")
     late = carry.buffer.is_demo[:, n_rows:n_rows + 2 * RECIPE_STEPS_PER_ITER]
     check(bool(late[:RECIPE_DEMO_ENVS].all())
@@ -960,6 +975,20 @@ def learner_phase(assets, env, state, act, card) -> dict:
     log(f"[learner] demo phase over: rows {n_rows}..{int(carry.buffer.pos) - 1} "
         f"flagged on envs 0..{RECIPE_DEMO_ENVS - 1} only; buffer pos "
         f"{int(carry.buffer.pos)}, env steps {carry.env_steps}")
+
+    # what the kernel ran in a train step of the late steps
+    holder = [carry]
+
+    def late_step():
+        holder[0] = train_step_late(assets, holder[0])[0]
+
+    _, late_counts, host = trace_runs(late_step, 2 * RECIPE_STEPS_PER_ITER)
+    carry = holder[0]
+    log(f"[learner] traced train steps of the late steps: rasterizer kernel "
+        f"runs {late_counts}, host launches {host} [{card}]")
+    check(max(late_counts) == 2 * RECIPE_STEPS_PER_ITER,
+          f"kernel runs {late_counts}, late step")
+    check(host == 0, "host launches, late steps that replay")
 
     # where the device's time goes in one train step
     with tempfile.TemporaryDirectory() as tmp:
@@ -994,7 +1023,7 @@ def learner_phase(assets, env, state, act, card) -> dict:
         ms=mean[0], env_ms=mean[1], updates_ms=mean[2], wall_ms=mean[3],
         warmup_ms=rows[0][0], updates_per_s=updates_per_s,
         env_steps_per_s=env_steps_per_s,
-        rasterizer_launches_per_train_step=2 * RECIPE_STEPS_PER_ITER,
+        rasterizer_runs_per_train_step=max(late_counts),
         traced_step=dict(window_ms=prof["window_s"] * 1e3,
                          device_busy_ms=prof["device_busy_s"] * 1e3,
                          device_idle_share=prof["device_idle_share"],
@@ -1016,10 +1045,13 @@ def learner_phase(assets, env, state, act, card) -> dict:
         carry2, m2, n_launch, total, env_ms, upd_ms, wall = timed_train_step(
             train2, carry2)
         log(f"[learner] default SAC train step {it + 1}: {total:.1f} ms = env "
-            f"steps {env_ms:.1f} + updates {upd_ms:.1f}; rasterizer launches "
-            f"{n_launch}; " + ", ".join(f"{k} {v:.4g}" for k, v in m2.items())
+            f"steps {env_ms:.1f} + updates {upd_ms:.1f}; rasterizer host "
+            f"launches {n_launch}; " + ", ".join(f"{k} {v:.4g}"
+                                                for k, v in m2.items())
             + f" [{card}]")
-        check(n_launch == 2 * RECIPE_STEPS_PER_ITER, "launches, default SAC")
+        check(n_launch == host_launches(it * RECIPE_STEPS_PER_ITER,
+                                        RECIPE_STEPS_PER_ITER),
+              "host launches, default SAC")
         check(all(math.isfinite(v) for v in m2.values()), "non-finite metric")
     check(moved(actor0, st2.actor.state_dict()), "default SAC: actor did not move")
     check(float(st2.log_alpha.detach()) != 0.0 and m2["alpha"] != 1.0,
@@ -1046,12 +1078,24 @@ def learner_phase(assets, env, state, act, card) -> dict:
                evaluate(g, EVAL_EPISODES, actor32).items()}
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    n_launch = rc.render_obs_cuda.launches
+    n_host = rc.render_obs_cuda.launches
+    # the same evaluation again, traced: its steps all replay
+
+    def again_fn():
+        g = torch.Generator(device="cuda").manual_seed(RECIPE_SEED)
+        return {k: float(v) for k, v in
+                evaluate(g, EVAL_EPISODES, actor32).items()}
+
+    again, eval_counts, eval_host = trace_runs(again_fn, EVAL_STEPS + 1)
+    n_launch = max(eval_counts)
     nine = {k: v for k, v in metrics.items() if "_case_" not in k}
     log(f"[learner] evaluator: deliverable actor (f32), {EVAL_EPISODES} "
         f"validation episodes x {EVAL_STEPS} steps in {eval_s:.2f} s "
-        f"({eval_s / EVAL_STEPS * 1e3:.2f} ms per step), rasterizer launches "
-        f"{n_launch} (1 at the reset + 1 per step) [{card}]")
+        f"({eval_s / EVAL_STEPS * 1e3:.2f} ms per step), rasterizer host "
+        f"launches {n_host} (the reset, the eager step, the capture); the "
+        f"evaluation again, traced: kernel runs {eval_counts} (1 at the reset "
+        f"+ 1 per step), host launches {eval_host}, metrics "
+        f"{'equal' if again == metrics else 'apart'} [{card}]")
     log("[learner] evaluator metrics: "
         + ", ".join(f"{k} {v:.4f}" for k, v in nine.items()))
     log("[learner] success per validation case: "
@@ -1063,10 +1107,17 @@ def learner_phase(assets, env, state, act, card) -> dict:
               "success_percentage"):
         check(0.0 <= metrics[k] <= 1.0, k)
     check(1.0 <= metrics["mean_episode_length"] <= EVAL_STEPS, "episode length")
-    check(n_launch == EVAL_STEPS + 1, f"{n_launch} launches in the evaluation")
+    check(n_host == 1 + host_launches(0, EVAL_STEPS, renders=1),
+          f"{n_host} host launches in the evaluation")
+    check(n_launch == EVAL_STEPS + 1, f"{n_launch} kernel runs in the "
+          "evaluation")
+    check(eval_host == len(eval_counts), f"{eval_host} host launches in "
+          f"{len(eval_counts)} evaluations that replay")
     result["evaluator"] = dict(episodes=EVAL_EPISODES, steps=EVAL_STEPS,
                                ms_per_step=eval_s / EVAL_STEPS * 1e3,
-                               rasterizer_launches=n_launch, metrics=metrics)
+                               rasterizer_runs=n_launch,
+                               rasterizer_host_launches=n_host,
+                               metrics=metrics)
     return result
 
 
@@ -1101,6 +1152,71 @@ def synchronizing_calls(fn):
             warnings.showwarning = plain_show
     torch.cuda.synchronize()
     return out, {w: syncs.count(w) for w in sorted(set(syncs))}
+
+
+RASTER_KERNEL = "render_obs_kernel"
+
+
+@contextlib.contextmanager
+def rasterizer_runs():
+    """The rasterizer's work inside the block, set on the yielded namespace
+    at exit: ``runs``, the kernel's runs on the card, counted from the
+    ``render_obs_kernel`` events of a torch.profiler trace of the block
+    (the kernels a replayed CUDA graph runs are kernel events too); ``host``,
+    its launches from the host (``render_obs_cuda.launches``, set to 0 just
+    before), which an env step that replays its graphs does not add to."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+
+    got = types.SimpleNamespace(runs=None, host=None)
+    torch.cuda.synchronize()
+    rc.render_obs_cuda.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield got
+        torch.cuda.synchronize()
+    got.host = rc.render_obs_cuda.launches
+    got.runs = sum(e.device_type == DeviceType.CUDA and RASTER_KERNEL in e.name
+                   for e in prof.events())
+
+
+TRACE_TRIES = 3
+
+
+def trace_runs(fn, want: int):
+    """fn() under ``rasterizer_runs``, traced again (TRACE_TRIES traces at
+    most) while a trace holds fewer than ``want`` kernel runs: the CUDA
+    activity records of a trace can lose kernels (a few hundred of some
+    35,000-kernel traces; a render in about one trace of 15 of 32 steps),
+    and never add one. -> (fn's last result, the runs of each trace, the
+    host launches in all of them)."""
+    counts, host, out = [], 0, None
+    while len(counts) < TRACE_TRIES and (not counts or counts[-1] < want):
+        with rasterizer_runs() as raster:
+            out = fn()
+        counts.append(raster.runs)
+        host += raster.host
+    return out, counts, host
+
+
+def host_launches(first: int, n: int, renders: int = 2) -> int:
+    """The rasterizer's host launches in env steps ``first`` .. ``first + n
+    - 1`` of a new ``step_fn`` on the card, ``renders`` a step: in its first
+    two calls (the eager one and the capture of its graphs), none in a
+    replay."""
+    return renders * max(0, min(first + n, 2) - first)
+
+
+def host_per_step(name, rows, env_steps):
+    """Each train step's host launches of the rasterizer (``rows``, a
+    ``host_launches`` each), ``env_steps`` env steps a train step: those of
+    a new ``step_fn``'s first two env steps, then none (its steps
+    replay)."""
+    for i, r in enumerate(rows):
+        want = host_launches(i * env_steps, env_steps)
+        check(r["host_launches"] == want,
+              f"{name}: {r['host_launches']} host launches in train step "
+              f"{i + 1}, not {want}")
 
 
 def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
@@ -1171,22 +1287,33 @@ def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
 
     # ---- b. the policy-mode main path ---------------------------------
     torch.cuda.synchronize()
-    rc.render_obs_cuda.launches = 0
     t0 = time.perf_counter()
     for _ in range(TIMED_STEPS):
         out = env.step(state, act)
         state = out.state
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = rc.render_obs_cuda.launches
     steps_per_s = N_ENVS * TIMED_STEPS / elapsed
+
+    def traced():
+        nonlocal state
+        for _ in range(TIMED_STEPS):
+            o = env.step(state, act)
+            state = o.state
+        return o
+
+    out, counts, host = trace_runs(traced, TIMED_STEPS)
+    launches = max(counts)
     log(f"[npc] policy-mode main path: {TIMED_STEPS} steps x {N_ENVS} envs "
         f"in {elapsed:.3f} s: {steps_per_s:.1f} env-steps/s "
         f"({steps_per_s / route_steps_per_s:.3f} of route mode's "
-        f"{route_steps_per_s:.1f} in [main]), rasterizer launches "
-        f"{launches} [{card}]")
-    check(launches == TIMED_STEPS, f"{launches} launches in {TIMED_STEPS} "
+        f"{route_steps_per_s:.1f} in [main]); in traces of {TIMED_STEPS} "
+        f"more steps, rasterizer kernel runs {counts}, host launches {host} "
+        f"[{card}]")
+    check(launches == TIMED_STEPS, f"{counts} kernel runs in {TIMED_STEPS} "
           "policy-mode steps")
+    check(host == 0, f"{host} host launches in steps that replay their "
+          "graphs")
     check(out.obs.shape == (N_ENVS, 3, 64, 64) and out.obs.dtype == torch.uint8,
           "policy-mode obs")
     check(bool(torch.isfinite(out.reward).all())
@@ -1219,19 +1346,31 @@ def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
     fstate, _ = fenv.reset()
     torch.cuda.synchronize()
     rc.render_obs_cuda.launches = 0
-    for _ in range(4):
-        fout = fenv.step(fstate, act)
-        fstate = fout.state
-    torch.cuda.synchronize()
-    f_launches = rc.render_obs_cuda.launches
-    log(f"[npc] with_final_obs: 4 steps, rasterizer launches {f_launches}")
-    check(f_launches == 8 and fout.final_obs.shape == (N_ENVS, 3, 64, 64),
+    for _ in range(2):                  # the eager step and the capture
+        fstate = fenv.step(fstate, act).state
+    f_host = rc.render_obs_cuda.launches
+
+    def traced_f():
+        nonlocal fstate
+        for _ in range(2):
+            o = fenv.step(fstate, act)
+            fstate = o.state
+        return o
+
+    fout, f_counts, host = trace_runs(traced_f, 4)
+    f_launches = max(f_counts)
+    log(f"[npc] with_final_obs: 2 steps, rasterizer host launches {f_host} "
+        f"(the eager step's and the capture's); 2 more, traced: kernel runs "
+        f"{f_counts}, host launches {host}")
+    check(f_launches == 4 and fout.final_obs.shape == (N_ENVS, 3, 64, 64),
           "policy mode with_final_obs")
+    check(f_host == 4 and host == 0,
+          f"host launches {f_host}, {host} with with_final_obs")
     result.update(env_steps_per_s=steps_per_s, timed_steps=TIMED_STEPS,
-                  num_envs=N_ENVS, rasterizer_launches=launches,
+                  num_envs=N_ENVS, rasterizer_runs=launches,
                   route_env_steps_per_s=route_steps_per_s, phases_ms=phases,
                   synchronizing_calls_in_a_step=where,
-                  with_final_obs_launches=f_launches)
+                  with_final_obs_runs=f_launches)
     return result
 
 
@@ -1380,7 +1519,7 @@ def optional_packages() -> dict:
 def probed_train(train_mod, rc):
     """While active, the train step that ``rl.train.train`` builds is
     wrapped: CUDA events around every call and at its first
-    ``agent.update``, and the rasterizer's launches per call. Nothing
+    ``agent.update``, and the rasterizer's host launches per call. Nothing
     synchronizes inside the run; the events are read afterwards. Yields a
     namespace with ``rows`` [(start, first update, end, launches)], the
     host clock's ``host`` [(start, end)] and the ``metrics`` of every
@@ -1479,9 +1618,10 @@ def train_phase(card, have) -> dict:
         return tconfig.construct_rl_training_config(raw)
 
     def run(name, cfg, other_launches, **kw):
-        """One ``train`` call -> (carry, probe, per-step rows of ms, the
-        JSONL records). Launch counts are set to 0 just before and read
-        just after; ``other_launches``: those outside the train steps."""
+        """One ``train`` call -> (carry, probe, per-step rows of ms and host
+        launches, the JSONL records). The rasterizer's host launch count is
+        set to 0 just before and read just after; ``other_launches``: those
+        outside the train steps."""
         with probed_train(train_mod, rc) as probe:
             torch.cuda.synchronize()
             rc.render_obs_cuda.launches = 0
@@ -1495,7 +1635,7 @@ def train_phase(card, have) -> dict:
             total = e0.elapsed_time(e1)
             roll = e0.elapsed_time(mark) if mark is not None else total
             rows.append(dict(ms=total, rollout_ms=roll, update_ms=total - roll,
-                             rasterizer_launches=n))
+                             host_launches=n))
         logs = sorted(f for f in os.listdir(cfg.log_dir) if f.endswith(".jsonl"))
         with open(os.path.join(cfg.log_dir, logs[-1])) as f:
             records = [json.loads(line) for line in f]
@@ -1507,24 +1647,46 @@ def train_phase(card, have) -> dict:
                   f"{name}: no {prefix} record")
         check(any("eval/success_case_0" in r for r in records),
               f"{name}: no per-case validation record")
-        in_steps = sum(r["rasterizer_launches"] for r in rows)
+        in_steps = sum(r["host_launches"] for r in rows)
         check(launches == in_steps + other_launches,
-              f"{name}: {launches} launches, {in_steps} in train steps")
+              f"{name}: {launches} host launches, {in_steps} in train steps")
         log(f"[train] {name}: {len(rows)} train steps in {wall:.1f} s wall "
-            f"(evaluations and checkpoints included), rasterizer launches "
-            f"{launches} = {in_steps} in train steps + {other_launches} at "
-            f"the first reset and in the two evaluations [{card}]")
+            f"(evaluations and checkpoints included), rasterizer host "
+            f"launches {launches} = {in_steps} in train steps + "
+            f"{other_launches} at the first reset and in the two evaluations "
+            f"[{card}]")
         launched[name] = launches
         return carry, probe, rows, records
 
     def moved(before, after):
         return any(not torch.equal(before[k], after[k]) for k in before)
 
-    # outside its train steps a run launches the rasterizer at the first
-    # reset and, in each of its two evaluations, at the reset and every step
-    eval_launches = 1 + 2 * (_ENV["max_environment_steps"] + 1)
+    def traced_train_step(name, probe, carry, env_steps):
+        """One more train step of the run's own train function, traced (a
+        few, where a trace lost a kernel record) -> (carry, the
+        rasterizer's kernel runs): two an env step, and no host launch
+        (every env step replays)."""
+        holder = [carry]
+
+        def one():
+            holder[0] = probe.train_fn(probe.assets, holder[0])[0]
+
+        _, counts, host = trace_runs(one, 2 * env_steps)
+        log(f"[train] {name}: one more train step, traced: rasterizer kernel "
+            f"runs {counts}, host launches {host} [{card}]")
+        check(max(counts) == 2 * env_steps,
+              f"{name}: {counts} kernel runs in a train step")
+        check(host == 0, f"{name}: {host} host launches in train steps that "
+              "replay")
+        return holder[0], max(counts)
+
+    # outside its train steps a run launches the rasterizer from the host at
+    # the first reset and, in each of its two evaluations, at the reset and
+    # in the evaluator's first two steps (the eager one and the capture)
+    eval_launches = 1 + 2 * (1 + host_launches(
+        0, _ENV["max_environment_steps"], renders=1))
     launched = {}
-    result = {"optional_packages": have, "rasterizer_launches": launched}
+    result = {"optional_packages": have, "rasterizer_host_launches": launched}
     torch.cuda.reset_peak_memory_stats()
 
     # ---- PPO at full width ----------------------------------------------
@@ -1541,10 +1703,9 @@ def train_phase(card, have) -> dict:
                 f"device's clock = rollout {r['rollout_ms']:.1f} "
                 f"({r['rollout_ms'] / n_steps:.2f} per env step) + update "
                 f"{r['update_ms']:.1f} ({r['update_ms'] / grad_steps:.2f} per "
-                f"gradient step); rasterizer launches "
-                f"{r['rasterizer_launches']} [{card}]")
-            check(r["rasterizer_launches"] == 2 * n_steps,
-                  f"PPO: {r['rasterizer_launches']} launches in a train step")
+                f"gradient step); rasterizer host launches "
+                f"{r['host_launches']} [{card}]")
+        host_per_step("PPO", rows, n_steps)
         last = [r for r in records if "train/loss" in r][-1]
         log("[train] PPO last train record: "
             + ", ".join(f"{k[6:]} {v:.4g}" for k, v in last.items()
@@ -1596,6 +1757,7 @@ def train_phase(card, have) -> dict:
         log(f"[train] one PPO train step with synchronizing calls reported: "
             f"{sum(where.values())}: {where}")
         check(not where, f"PPO: synchronizing calls in a train step: {where}")
+        carry, ppo_runs = traced_train_step("PPO", probe, carry, n_steps)
 
         # the CLI's precision against torch's default, which runs cuDNN's
         # float32 convolutions in TF32: train steps of this carry in turns
@@ -1621,8 +1783,8 @@ def train_phase(card, have) -> dict:
         cfg2 = config_of(PPO_YML, tmp, (PPO_TRAIN_STEPS + 1) * per_step)
         carry2, probe2, rows2, _ = run("PPO resumed", cfg2, eval_launches,
                                        resume_from=full)
-        check(len(rows2) == 1 and rows2[0]["rasterizer_launches"] == 2 * n_steps,
-              "PPO resumed: one train step")
+        check(len(rows2) == 1, "PPO resumed: one train step")
+        host_per_step("PPO resumed", rows2, n_steps)
         check(carry2.env_steps == (PPO_TRAIN_STEPS + 1) * per_step,
               f"PPO resumed: env_steps {carry2.env_steps}")
         resumed = probe2.agent.export_state()
@@ -1644,7 +1806,7 @@ def train_phase(card, have) -> dict:
                              for k in ("ms", "rollout_ms", "update_ms")},
         env_steps_per_s_after_first=per_step * len(steady)
         / (sum(r["ms"] for r in steady) * 1e-3),
-        rasterizer_launches_per_train_step=2 * n_steps,
+        rasterizer_runs_per_train_step=ppo_runs,
         synchronizing_calls_in_a_train_step=where,
         precision_in_turns_ms=ab,
         traced_step=dict(window_ms=prof["window_s"] * 1e3,
@@ -1669,10 +1831,7 @@ def train_phase(card, have) -> dict:
             check(len(rows) == depth
                   and carry.env_steps == depth * steps_per_iter * n_envs,
                   f"{name}: depth")
-            for r in rows:
-                check(r["rasterizer_launches"] == 2 * steps_per_iter,
-                      f"{name}: {r['rasterizer_launches']} launches in a "
-                      "train step")
+            host_per_step(name, rows, steps_per_iter)
             after = probe.agent.export_state()
             files = sorted(os.listdir(cfg.checkpoint_dir))
             check(f"model_{carry.env_steps}" in files
@@ -1715,11 +1874,11 @@ def train_phase(card, have) -> dict:
                     f"{k} {v}" for k, v in counts.items()) + "; last record: "
                 + ", ".join(f"{k[6:]} {v:.4g}" for k, v in last.items()
                             if k.startswith("train/")) + f" [{card}]")
+            carry, runs = traced_train_step(name, probe, carry, steps_per_iter)
             result[name.lower()] = dict(
                 source=path, num_envs=n_envs, train_steps=depth,
                 env_steps=carry.env_steps, mean_ms_last_half=mean,
-                rasterizer_launches_per_train_step=2 * steps_per_iter,
-                **counts)
+                rasterizer_runs_per_train_step=runs, **counts)
             del carry, probe
 
     # ---- stage-1 SAC with the GRU driving every NPC -----------------------
@@ -1734,10 +1893,7 @@ def train_phase(card, have) -> dict:
         check(len(rows) == NPC_SAC_TRAIN_STEPS
               and carry.env_steps == NPC_SAC_TRAIN_STEPS * spi * n_envs,
               "SAC npc policy: depth")
-        for r in rows:
-            check(r["rasterizer_launches"] == 2 * spi,
-                  f"SAC npc policy: {r['rasterizer_launches']} launches in a "
-                  "train step")
+        host_per_step("SAC npc policy", rows, spi)
         hidden = carry.rollout.env_state.npc_hidden
         check(hidden is not None and hidden.shape == (n_envs, 96, 16)
               and bool(torch.isfinite(hidden).all())
@@ -1765,10 +1921,11 @@ def train_phase(card, have) -> dict:
             f"|h| {float(hidden.abs().mean()):.4f}; last record: "
             + ", ".join(f"{k[6:]} {v:.4g}" for k, v in last.items()
                         if k.startswith("train/")) + f" [{card}]")
+        carry, runs = traced_train_step("SAC npc policy", probe, carry, spi)
         result["sac_npcpolicy"] = dict(
             source=NPC_SAC_YML, num_envs=n_envs, train_steps=rows,
             updates=updates, buffer_frames_gb=frames_gb,
-            rasterizer_launches_per_train_step=2 * spi,
+            rasterizer_runs_per_train_step=runs,
             npc_hidden_mean_abs=float(hidden.abs().mean()))
         del carry, probe, hidden
     return result
@@ -1851,7 +2008,7 @@ def tools_phase(card) -> dict:
     )
 
     result, launched = {}, {}
-    result["rasterizer_launches"] = launched
+    result["rasterizer_host_launches"] = launched
     assets = load_assets("train")
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 1. the BC warm start: bc_pretrain's command at its width ----
@@ -1867,8 +2024,8 @@ def tools_phase(card) -> dict:
             launched["bc_pretrain"] = rc.render_obs_cuda.launches
         n_pairs = BC_ENVS * BC_ROLLOUT_STEPS
         check(launched["bc_pretrain"] == probe.collect_launches
-              == BC_ROLLOUT_STEPS + 1,
-              f"BC: {launched['bc_pretrain']} rasterizer launches "
+              == 1 + host_launches(0, BC_ROLLOUT_STEPS, renders=1),
+              f"BC: {launched['bc_pretrain']} rasterizer host launches "
               f"({probe.collect_launches} in the collection) for "
               f"{BC_ROLLOUT_STEPS} steps and a reset")
         check(res["pairs"] == n_pairs
@@ -1884,8 +2041,9 @@ def tools_phase(card) -> dict:
             f"{BC_ROLLOUT_STEPS} steps = {n_pairs} pairs "
             f"({probe.pairs_gb:.2f} GB on the card) in {probe.collect_s:.1f} "
             f"s ({probe.collect_s / BC_ROLLOUT_STEPS * 1e3:.1f} ms per env "
-            f"step); rasterizer launches {launched['bc_pretrain']} in the "
-            f"whole command (one per step and one at the reset) [{card}]")
+            f"step); rasterizer host launches {launched['bc_pretrain']} in "
+            f"the whole command (the reset, the eager step, the capture) "
+            f"[{card}]")
         mses = res["mses"]
         mse_first, mse_last = float(mses[0]), float(mses[-100:].mean())
         check(mses.shape == (BC_STEPS,) and bool(torch.isfinite(mses).all())
@@ -1928,13 +2086,12 @@ def tools_phase(card) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched["init_model_train"] = rc.render_obs_cuda.launches
-        rows = [dict(ms=e0.elapsed_time(e1), rasterizer_launches=n)
+        rows = [dict(ms=e0.elapsed_time(e1), host_launches=n)
                 for e0, _, e1, n in probe.rows]
         check(len(rows) == TOOLS_TRAIN_STEPS
               and carry.env_steps == TOOLS_TRAIN_STEPS * per_step,
               "init_model run: depth")
-        check(all(r["rasterizer_launches"] == 2 * spi for r in rows),
-              f"init_model run: launches {rows}")
+        host_per_step("init_model run", rows, spi)
         first, after = probe.first, probe.agent.export_state()
         for k, v in tree["actor"].items():
             check(torch.equal(first["actor"][k], v),
@@ -1979,8 +2136,10 @@ def tools_phase(card) -> dict:
         check([r["step"] for r in sweep] == [0] + [
             (i + 1) * per_step for i in range(TOOLS_TRAIN_STEPS)],
             "eval_checkpoints: order")
-        check(launched["eval_checkpoints"] == len(sweep) * (1 + horizon),
-              f"eval_checkpoints: {launched['eval_checkpoints']} launches")
+        # each checkpoint's evaluation makes its own env functions
+        check(launched["eval_checkpoints"] == len(sweep) * (
+            1 + host_launches(0, horizon, renders=1)),
+            f"eval_checkpoints: {launched['eval_checkpoints']} host launches")
         for r in sweep:
             check(all(math.isfinite(v) for k, v in r.items()
                       if k != "checkpoint"), f"eval_checkpoints: {r}")
@@ -2036,8 +2195,8 @@ def tools_phase(card) -> dict:
         torch.cuda.synchronize()
         launched["distilled_policy_steps"] = rc.render_obs_cuda.launches
         hidden = pstate.npc_hidden
-        check(launched["distilled_policy_steps"] == 4
-              and bool(torch.isfinite(hidden).all())
+        check(launched["distilled_policy_steps"] == host_launches(
+            0, 4, renders=1) and bool(torch.isfinite(hidden).all())
               and float(hidden.abs().max()) > 0.0
               and bool(torch.isfinite(pstate.agent_states).all()),
               "policy-mode steps with the distilled GRU")
@@ -2169,11 +2328,9 @@ def _bench_steps(run: dict) -> int:
 
 def _bench_worker(pm, case: str, out_dir: str) -> dict:
     """A rank of ``bench --mesh`` (``--multi-worker bench1|bench2``): the
-    bench's main with the kernel's launch count set to 0 just before and
-    read just after. bench2's rank 0 also writes the breakdown of its own
-    rows."""
+    bench's main, traced for the kernel's runs (``rasterizer_runs``).
+    bench2's rank 0 also writes the breakdown of its own rows."""
     from torchdriveenv_tpu_torch import bench
-    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
     argv = _bench_argv(BENCH_MESH_RUN, "--mesh")
     if BENCH_MESH_CASES[case] > 1:
         # nccl refuses two ranks on one card
@@ -2182,9 +2339,11 @@ def _bench_worker(pm, case: str, out_dir: str) -> dict:
               "the gloo group did not come up")
         argv += ["--breakdown", os.path.join(out_dir,
                                              f"{case}_breakdown.json")]
-    rc.render_obs_cuda.launches = 0
-    record = bench.main(argv)
-    return dict(record=record, launches=rc.render_obs_cuda.launches)
+    with rasterizer_runs() as raster:
+        record = bench.main(argv)
+    # at least this many runs: the trace can lose records, and every host
+    # launch runs the kernel (a capture's by the replay that follows it)
+    return dict(record=record, launches=max(raster.runs, raster.host))
 
 
 def _bench_main(bench, argv: list) -> dict:
@@ -2237,22 +2396,21 @@ def bench_phase(card) -> dict:
     against one process with the same seed and steps: the frames' checksum
     summed over the ranks exact, the rewards' within rtol 1e-5."""
     from torchdriveenv_tpu_torch import bench
-    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "breakdown.json")
-        rc.render_obs_cuda.launches = 0
-        line = _bench_main(bench, _bench_argv(BENCH_BREAKDOWN_RUN,
-                                              "--breakdown", path))
-        launches = rc.render_obs_cuda.launches
+        with rasterizer_runs() as raster:
+            line = _bench_main(bench, _bench_argv(BENCH_BREAKDOWN_RUN,
+                                                  "--breakdown", path))
+        launches = max(raster.runs, raster.host)      # as _bench_worker
         with open(path) as f:
             bd = json.load(f)
         steps = _bench_steps(BENCH_BREAKDOWN_RUN)
         log(f"[bench] --breakdown: {line['value']:.1f} env-steps/s (median "
-            f"{line['median']:.1f}), rasterizer launches {launches} "
-            f"({steps} steps) [{card}]")
-        check(launches >= steps, f"[bench] the kernel launched {launches} "
+            f"{line['median']:.1f}), rasterizer kernel runs {launches} "
+            f"({steps} steps; the run traced) [{card}]")
+        check(launches >= steps, f"[bench] the kernel ran {launches} "
               f"times in {steps} steps")
         out = dict(breakdown=bd, breakdown_shares=_check_breakdown(
             bd, "--breakdown", card), breakdown_launches=launches,
@@ -2278,7 +2436,7 @@ def bench_phase(card) -> dict:
                 f"{rec['obs_checksum']} against {one['obs_checksum']}, reward "
                 f"{rec['reward_checksum']!r} against "
                 f"{one['reward_checksum']!r} (relative {reward_err:.2e}); "
-                f"rasterizer launches by rank {rank_launches} [{card}]")
+                f"rasterizer kernel runs by rank {rank_launches} [{card}]")
             check(rec["world"] == world and rec["backend"] == (
                 "nccl" if world == 1 else "gloo"),
                 f"[bench] {case} ran as world {rec['world']} "
@@ -2291,7 +2449,7 @@ def bench_phase(card) -> dict:
                   "off one process's")
             check(all(n >= _bench_steps(BENCH_MESH_RUN)
                       for n in rank_launches),
-                  f"[bench] {case}: rasterizer launches by rank "
+                  f"[bench] {case}: rasterizer kernel runs by rank "
                   f"{rank_launches}")
             out[case] = dict(record=rec, launches=rank_launches,
                              reward_rel_err=reward_err)
@@ -2458,8 +2616,10 @@ def _multi_world1(pm, dev) -> dict:
 
 
 def _gathered_rollout(env, state, act, steps, pm, mesh, dev):
-    """``steps`` env steps (timed; kernel launches counted from 0); then the
-    per-step frames, done flags and agent states gathered over the mesh."""
+    """``steps`` env steps (timed; the rasterizer's host launches counted
+    from 0: under a mesh the step is eager, so they are the kernel's runs);
+    then the per-step frames, done flags and agent states gathered over the
+    mesh."""
     from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
     rows = []
     _sync(dev)
@@ -2667,7 +2827,7 @@ def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
         ref_env, ref_state, ref_act, steps, pm, None, dev)
     out["rollout"] = _compare_rows(got, want)
     out["one_process_ms_per_step"] = ref_ms
-    out["one_process_launches"] = ref_launches
+    out["one_process_host_launches"] = ref_launches
     ref_pool = BatchedEnv(cfg, assets, n_envs, device=dev, seed=1)
     rpstate, _ = ref_pool.reset()
     rpstate = rpstate.replace(step_idx=last)
@@ -3945,14 +4105,18 @@ def env_parity(card_assets, cpu_assets, dev, n, card) -> dict:
             f"(bound {res['flip_bound']}; first flipped by "
             f"{res['flips_by'] or '-'}), done {done}, frames of "
             f"{res['frame_envs']} envs a step: largest share of pixels apart "
-            f"{res['pixel_share_max']:.3g}, rasterizer launches {launches}"
+            f"{res['pixel_share_max']:.3g}, rasterizer host launches "
+            f"{launches}"
             + (f"; first float fault: {res['float_fail']}"
                if res["float_fail"] else "") + f" [{card}]")
         check(res["ok"], f"[parity] env {mode} out of bounds: {res}")
         if torch.device(dev).type == "cuda":
-            check(launches == steps + 1,
-                  f"[parity] env {mode}: {launches} rasterizer launches in "
-                  f"{steps + 1} renders")
+            # the reset, then the step's eager call and its capture: the
+            # later steps replay the launch that the capture recorded
+            want = 1 + host_launches(0, steps, renders=1)
+            check(launches == want,
+                  f"[parity] env {mode}: {launches} rasterizer host launches, "
+                  f"not {want}")
         out[mode] = res
     out["cpu_s"] = cpu_s
     return out
@@ -4353,22 +4517,35 @@ def main() -> int:
     for _ in range(4):
         state = env.step(state, act).state
     torch.cuda.synchronize()
-    rc.render_obs_cuda.launches = 0
     t0 = time.perf_counter()
     for _ in range(TIMED_STEPS):
         out = env.step(state, act)
         state = out.state
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = rc.render_obs_cuda.launches
     steps_per_s = N_ENVS * TIMED_STEPS / elapsed
+    # the same path traced for as many steps: what the kernel ran
+
+    def traced():
+        nonlocal state
+        for _ in range(TIMED_STEPS):
+            o = env.step(state, act)
+            state = o.state
+        return o
+
+    out, counts, host = trace_runs(traced, TIMED_STEPS)
+    launches = max(counts)
     checksum = int(out.obs.sum())
     log(f"[main] {TIMED_STEPS} steps x {N_ENVS} envs in {elapsed:.3f} s: "
-        f"{steps_per_s:.1f} env-steps/s, obs checksum {checksum}, "
-        f"rasterizer launches {launches} [{card}]")
+        f"{steps_per_s:.1f} env-steps/s; in traces of {TIMED_STEPS} more "
+        f"steps, rasterizer kernel runs {counts}, host launches {host}; obs "
+        f"checksum {checksum} [{card}]")
     if launches != TIMED_STEPS:
-        raise AssertionError(f"rasterizer launched {launches} times in "
+        raise AssertionError(f"rasterizer kernel ran {counts} times in "
                              f"{TIMED_STEPS} renders")
+    if host != 0:
+        raise AssertionError(f"{host} host launches in steps that replay "
+                             "their graphs")
     if out.obs.shape != (N_ENVS, 3, 64, 64) or out.obs.dtype != torch.uint8:
         raise AssertionError(f"obs {tuple(out.obs.shape)} {out.obs.dtype}")
     if not torch.isfinite(out.reward).all():
@@ -4391,15 +4568,26 @@ def main() -> int:
     fstate, _ = fenv.reset()
     torch.cuda.synchronize()
     rc.render_obs_cuda.launches = 0
-    for _ in range(4):
-        fout = fenv.step(fstate, act)
-        fstate = fout.state
-    torch.cuda.synchronize()
-    f_launches = rc.render_obs_cuda.launches
-    log(f"[main] with_final_obs: 4 steps, rasterizer launches {f_launches} "
-        "(batch + pool render per step)")
-    if f_launches != 8 or fout.final_obs.shape != (N_ENVS, 3, 64, 64):
+    for _ in range(2):                  # the eager step and the capture
+        fstate = fenv.step(fstate, act).state
+    f_host = rc.render_obs_cuda.launches
+
+    def traced_f():
+        nonlocal fstate
+        for _ in range(2):
+            o = fenv.step(fstate, act)
+            fstate = o.state
+        return o
+
+    fout, f_counts, host = trace_runs(traced_f, 4)
+    log(f"[main] with_final_obs: 2 steps, rasterizer host launches {f_host} "
+        f"(the eager step's and the capture's); 2 more, traced: kernel runs "
+        f"{f_counts} (batch + pool render per step), host launches {host}")
+    if max(f_counts) != 4 or fout.final_obs.shape != (N_ENVS, 3, 64, 64):
         raise AssertionError("with_final_obs path did not render as expected")
+    if f_host != 4 or host != 0:
+        raise AssertionError(f"host launches {f_host}, {host} with "
+                             "with_final_obs")
     del fenv, fstate, fout
 
     bench_path = bench_phase(card)
@@ -4424,7 +4612,7 @@ def main() -> int:
         "bound_by": main_cmp["bound_by"],
         "library_ms": None,
         "multi_launches": multi["world2"]["launches"],
-        "tools_launches": tools["rasterizer_launches"],
+        "tools_launches": tools["rasterizer_host_launches"],
         "bytes_bound_ms": main_cmp["bytes_bound_ms"],
         "scan_all_operations_bound_ms": main_cmp["scan_all_operations_bound_ms"],
         "culled_operations_bound_ms": main_cmp["culled_operations_bound_ms"],

@@ -150,9 +150,8 @@ def test_collect_demo_pairs_matches_jax(monkeypatch):
     handed = [tcore.EnvState.from_numpy(state0, device="cpu")] + [
         tcore.EnvState.from_numpy(jax.tree.map(lambda x, t=t: x[t], fresh),
                                   device="cpu") for t in range(T)]
-    monkeypatch.setattr(tcore, "reset",
-                        lambda cfg, assets, n, generator, case=None,
-                        mesh=None: handed.pop(0))
+    monkeypatch.setattr(tcore, "reset_from_draws",
+                        lambda cfg, assets, draws: handed.pop(0))
     got_s, got_a = bc_pretrain.collect_demo_pairs(
         TEnvConfig(max_environment_steps=HORIZON), tassets, E, T,
         torch.Generator().manual_seed(0))

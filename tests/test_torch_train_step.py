@@ -432,9 +432,8 @@ def test_onpolicy_train_step_matches_jax(assets, monkeypatch, algo="ppo"):
               for k in seen["act_keys"]]
     fresh = [tcore.EnvState.from_numpy(s, device="cpu")
              for s in seen["resets"]]
-    monkeypatch.setattr(tcore, "reset",
-                        lambda cfg, assets, n, generator, case=None,
-                        mesh=None: fresh.pop(0))
+    monkeypatch.setattr(tcore, "reset_from_draws",
+                        lambda cfg, assets, draws: fresh.pop(0))
     plain_select, plain_update = tagent.select_action, tagent.update
     got = {}
 

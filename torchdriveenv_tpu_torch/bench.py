@@ -42,7 +42,12 @@ import torch.distributed as dist
 
 from torchdriveenv_tpu_torch.config import CollisionMetric, EnvConfig
 from torchdriveenv_tpu_torch.env import core
-from torchdriveenv_tpu_torch.env.batched import _autoreset, _obs_batched, make_env_fns
+from torchdriveenv_tpu_torch.env.batched import (
+    _autoreset,
+    _obs_batched,
+    _reset_draws,
+    make_env_fns,
+)
 from torchdriveenv_tpu_torch.maps.arrays import load_assets, resolve_device
 from torchdriveenv_tpu_torch.npc.policy_net import (HIDDEN, NpcGRU,
                                                    default_params)
@@ -107,7 +112,8 @@ def phase_ms(cfg, assets, state, generator) -> dict:
                                               npc_params=npc_params)),
         "render": timed_ms(lambda: _obs_batched(cfg, assets, state)),
         "autoreset_pool_all_done": timed_ms(
-            lambda: _autoreset(cfg, assets, state, done, generator)),
+            lambda: _autoreset(cfg, assets, state, done,
+                               _reset_draws(cfg, assets, n, generator))),
     }
 
 

@@ -392,6 +392,25 @@ def reset(cfg: EnvConfig, assets: Assets, n: int, generator: torch.Generator,
     return reset_from_draws(cfg, assets, shard_carry(draws, mesh))
 
 
+def npc_phase(cfg: EnvConfig, assets: Assets, state: EnvState,
+              npc_params: Optional[policy_net.NpcGRU] = None,
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The NPCs' actions (B, A, 2) of one step and their next hidden state
+    (``state.npc_hidden`` as it is in route mode): the first part of
+    ``step``, inside its ``env.npc`` span."""
+    t_now = state.time0 + state.step_idx.to(torch.float32) * cfg.simulator.dt
+    npc_args = (assets.maps, state.town, t_now, state.agent_states,
+                state.agent_attrs, state.present, state.npc_target_speed)
+    if cfg.npc_mode != "policy":
+        return npc_actions(*npc_args), state.npc_hidden
+    if state.npc_hidden is None:
+        raise ValueError("npc_mode='policy' needs a state with npc_hidden "
+                         "(one reset in policy mode)")
+    policy = (npc_params if npc_params is not None
+              else policy_net.default_params(state.agent_states.device))
+    return policy_net.npc_policy_actions(policy, *npc_args, state.npc_hidden)
+
+
 def step(cfg: EnvConfig, assets: Assets, state: EnvState,
          action: torch.Tensor, npc_params: Optional[policy_net.NpcGRU] = None,
          ) -> Tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -400,27 +419,24 @@ def step(cfg: EnvConfig, assets: Assets, state: EnvState,
     to the action space. ``npc_params``: the GRU NPC policy in
     ``npc_mode="policy"`` (default: the shipped one). Returns (next_state,
     reward, terminated, truncated, info), each with a leading B axis."""
+    with spans.span("env.npc"):
+        npc = npc_phase(cfg, assets, state, npc_params)
+    return physics_phase(cfg, assets, state, action, npc)
+
+
+def physics_phase(cfg: EnvConfig, assets: Assets, state: EnvState,
+                  action: torch.Tensor,
+                  npc: Tuple[torch.Tensor, Optional[torch.Tensor]],
+                  ) -> Tuple[EnvState, torch.Tensor, torch.Tensor,
+                             torch.Tensor, Dict[str, torch.Tensor]]:
+    """The rest of ``step`` after ``npc_phase`` gave ``npc`` (the NPCs'
+    actions and hidden state): the ego's clipped action, the bicycle, the
+    log replay, the infractions, waypoints and reward."""
     suite, maps = assets.suite, assets.maps
     dt = cfg.simulator.dt
     case = state.case.long()
     last_ego = state.agent_states[:, 0]
-    t_now = state.time0 + state.step_idx.to(torch.float32) * dt
-
-    # NPC behavior + ego action
-    npc_hidden = state.npc_hidden
-    npc_args = (maps, state.town, t_now, state.agent_states, state.agent_attrs,
-                state.present, state.npc_target_speed)
-    if cfg.npc_mode == "policy" and npc_hidden is None:
-        raise ValueError("npc_mode='policy' needs a state with npc_hidden "
-                         "(one reset in policy mode)")
-    with spans.span("env.npc"):
-        if cfg.npc_mode == "policy":
-            policy = (npc_params if npc_params is not None
-                      else policy_net.default_params(action.device))
-            npc_act, npc_hidden = policy_net.npc_policy_actions(
-                policy, *npc_args, npc_hidden)
-        else:
-            npc_act = npc_actions(*npc_args)
+    npc_act, npc_hidden = npc
     low = device_constant(ACTION_LOW, action.device)
     high = device_constant(ACTION_HIGH, action.device)
     ego_act = torch.clamp(action, min=low, max=high)

@@ -561,8 +561,19 @@ def render_observation(maps: MapArrays, town, t, agent_states, agent_attrs,
         prep = prepare_obs_inputs(maps, town, t, agent_states, agent_attrs,
                                   present, waypoints, target_idx, n_waypoints,
                                   fov=fov)
+    return render_prepared(maps, town, prep, res=res, fov=fov,
+                           left_handed=left_handed,
+                           highlight_ego=highlight_ego, backend=backend)
+
+
+def render_prepared(maps: MapArrays, town, prep, res: int = 64,
+                    fov: float = 70.0, left_handed: bool = True,
+                    highlight_ego: bool = True,
+                    backend: str = "auto") -> torch.Tensor:
+    """``render_observation`` from the inputs ``prepare_obs_inputs`` packed
+    (``prep``)."""
     if backend == "auto":
-        backend = "cuda" if agent_states.is_cuda else "torch"
+        backend = "cuda" if town.is_cuda else "torch"
     if backend == "cuda":
         fn = render_obs_cuda
     elif backend == "torch":

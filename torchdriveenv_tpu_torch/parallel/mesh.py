@@ -242,19 +242,21 @@ def replicate_(state: Any, mesh: Optional[Mesh]) -> Any:
     return state
 
 
-def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
-    """``fn`` over the tensor leaves of dataclasses, dicts, lists and
-    tuples; other leaves are kept."""
+def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
+    """``fn`` over the tensor leaves of dataclasses, dicts, lists, tuples
+    and named tuples; other leaves are kept."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: _map(fn, getattr(tree, f.name))
+            f.name: map_tensors(fn, getattr(tree, f.name))
             for f in dataclasses.fields(tree) if f.init})
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tensors(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
+        return type(tree)(map_tensors(fn, v) for v in tree)
     return tree
 
 
@@ -273,7 +275,7 @@ def shard_carry(carry: Any, mesh: Optional[Mesh]) -> Any:
             return x[mesh.lo:mesh.hi].clone()
         return x
 
-    return _map(place, carry)
+    return map_tensors(place, carry)
 
 
 def fetch_to_host(tree: Any, mesh: Optional[Mesh]) -> Any:
@@ -283,11 +285,11 @@ def fetch_to_host(tree: Any, mesh: Optional[Mesh]) -> Any:
     let rank 0 alone write), then copied to the CPU leaf by leaf, so the
     device holds one global leaf at a time."""
     if mesh is None:
-        return _map(lambda x: x.detach().cpu(), tree)
+        return map_tensors(lambda x: x.detach().cpu(), tree)
 
     def fetch(x):
         if x.dim() >= 1 and x.shape[0] == mesh.local_envs:
             x = gather_rows(x, mesh)
         return x.detach().cpu()
 
-    return _map(fetch, tree)
+    return map_tensors(fetch, tree)

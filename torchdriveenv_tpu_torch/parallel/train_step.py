@@ -64,6 +64,23 @@ def _first_reset(env_cfg: EnvConfig, assets: Assets, num_envs: int, seed: int,
     return generator, env_state, obs
 
 
+def _env_steps(env_cfg: EnvConfig, mesh: Optional[Mesh]
+               ) -> Callable[[Assets], Callable]:
+    """assets -> the env's ``step_fn`` with final observations, made anew
+    only for other assets than the last, so that the CUDA graphs it
+    captures serve every train step."""
+    last: Dict[str, Any] = {}
+
+    def step_fn_for(assets: Assets) -> Callable:
+        if last.get("assets") is not assets:
+            last["assets"] = assets
+            last["step_fn"] = make_env_fns(env_cfg, assets, render=True,
+                                           with_final_obs=True, mesh=mesh)[1]
+        return last["step_fn"]
+
+    return step_fn_for
+
+
 def _noise(n: int, g: torch.Generator, device) -> torch.Tensor:
     """The policy's standard-normal action noise for ``n`` envs."""
     return torch.randn((n, 2), generator=g, device=device)
@@ -114,6 +131,7 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
     fs = env_cfg.frame_stack
     res = env_cfg.simulator.renderer.obs_res
     local = _check_mesh(mesh, num_envs)
+    env_step_of = _env_steps(env_cfg, mesh)
 
     def init_fn(assets: Assets, seed: int = 0) -> OffPolicyCarry:
         _check_device(assets, dev)
@@ -136,8 +154,7 @@ def make_offpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
     def _train_step(assets: Assets, carry: OffPolicyCarry
                     ) -> Tuple[OffPolicyCarry, Dict[str, torch.Tensor]]:
         _check_device(assets, dev)
-        _, step_fn = make_env_fns(env_cfg, assets, render=True,
-                                  with_final_obs=True, mesh=mesh)
+        step_fn = env_step_of(assets)
         g, d = carry.generator, assets.device
         warmup = carry.env_steps < agent.cfg.learning_starts
         demo_mask = None
@@ -234,6 +251,7 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
     res = env_cfg.simulator.renderer.obs_res
     n_steps = n_steps or agent.cfg.n_steps
     local = _check_mesh(mesh, num_envs)
+    env_step_of = _env_steps(env_cfg, mesh)
 
     def init_fn(assets: Assets, seed: int = 0) -> OnPolicyCarry:
         _check_device(assets, dev)
@@ -248,8 +266,7 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
     def train_step_fn(assets: Assets, carry: OnPolicyCarry
                       ) -> Tuple[OnPolicyCarry, Dict[str, torch.Tensor]]:
         _check_device(assets, dev)
-        _, step_fn = make_env_fns(env_cfg, assets, render=True,
-                                  with_final_obs=True, mesh=mesh)
+        step_fn = env_step_of(assets)
         g, rs = carry.generator, carry.rollout
         d = assets.device
 

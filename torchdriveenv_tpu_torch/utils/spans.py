@@ -14,8 +14,8 @@ does nothing. On, a span
   - where CUDA is in use, records a timing event on the current stream at
     entry and at exit (none while the stream is being captured into a
     graph). An event record is no kernel, copy or memset.
-A count keeps a reference to a tensor the program already computed: it
-launches nothing and is summed when read. ``records()`` and ``counters()``
+A count keeps a reference to a tensor the program already computed (or a
+number): it launches nothing and is summed when read. ``records()`` and ``counters()``
 read the log, ``clear()`` empties it. The log holds ``MAX_RECORDS`` spans
 and as many counts, and counts what it drops past that (``dropped()``).
 
@@ -112,14 +112,20 @@ def span(name: str):
     return _Span(name)
 
 
-def count(name: str, tensor: torch.Tensor) -> None:
-    """When on, add ``tensor``'s sum (read later) to the counter ``name``."""
+def count(name: str, tensor) -> None:
+    """When on, add ``tensor``'s sum (read later; a number as it is) to the
+    counter ``name``."""
     if not (_LOG.recording or _profiler._is_profiler_enabled):
         return
     if len(_LOG.counts) >= MAX_RECORDS:
         _LOG.dropped += 1
         return
     _LOG.counts.append((name, tensor))
+
+
+def enabled() -> bool:
+    """Whether spans and counts are recorded now."""
+    return bool(_LOG.recording or _profiler._is_profiler_enabled)
 
 
 @contextlib.contextmanager
@@ -191,7 +197,8 @@ def counters() -> Dict[str, float]:
     """Each counter's total over the log (a host read of every tensor)."""
     out: Dict[str, float] = {}
     for name, t in _LOG.counts:
-        out[name] = out.get(name, 0) + t.sum().item()
+        n = t.sum().item() if isinstance(t, torch.Tensor) else t
+        out[name] = out.get(name, 0) + n
     return out
 
 
