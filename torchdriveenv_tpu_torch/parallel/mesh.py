@@ -25,6 +25,11 @@ the CPU, and under gloo with several ranks sharing one card (nccl refuses
 two ranks on one device). One process is ``mesh=None`` (``make_mesh``
 returns it for a one-rank group): no collective is issued and every helper
 returns its input's one-process value.
+
+Every collective is issued by ``_issue``: under ``utils/spans.py``'s
+recording (a profiler session or ``spans.recording()``) it runs inside the
+span ``mesh.collective`` and adds to the counters ``mesh.collectives`` (one
+a collective) and ``mesh.collective_bytes`` (the tensor's bytes).
 """
 
 from __future__ import annotations
@@ -36,6 +41,20 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from torchdriveenv_tpu_torch.utils import spans
+
+
+def _issue(op: Callable, t: torch.Tensor, **kwargs) -> None:
+    """``op(t, **kwargs)`` (``dist.all_reduce`` or ``dist.broadcast``),
+    spanned and counted while spans are recorded."""
+    if not spans.enabled():
+        op(t, **kwargs)
+        return
+    spans.count("mesh.collectives", 1)
+    spans.count("mesh.collective_bytes", t.numel() * t.element_size())
+    with spans.span("mesh.collective"):
+        op(t, **kwargs)
 
 
 def maybe_init_distributed(backend: Optional[str] = None,
@@ -154,7 +173,7 @@ def all_reduce_(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]
         by_dtype.setdefault(t.dtype, []).append(t)
     for group in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
+        _issue(dist.all_reduce, flat)
         for t, f in zip(group, flat.split([t.numel() for t in group])):
             t.copy_(f.view_as(t))
     return tensors
@@ -188,7 +207,7 @@ def gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     full = torch.zeros((mesh.num_envs,) + tuple(x.shape[1:]), dtype=dtype,
                        device=x.device)
     full[mesh.lo:mesh.hi] = x
-    dist.all_reduce(full)
+    _issue(dist.all_reduce, full)
     return full.to(x.dtype)
 
 
@@ -200,7 +219,7 @@ def offset_of(count: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
         return torch.zeros_like(count)
     counts = torch.zeros(mesh.world, dtype=torch.int64, device=count.device)
     counts[mesh.rank] = count
-    dist.all_reduce(counts)
+    _issue(dist.all_reduce, counts)
     return counts[:mesh.rank].sum().to(count.dtype)
 
 
@@ -210,7 +229,7 @@ def agree(flag: bool, mesh: Optional[Mesh]) -> bool:
     if mesh is None:
         return flag
     t = torch.tensor([int(flag)], dtype=torch.int64, device=_device())
-    dist.broadcast(t, src=0)
+    _issue(dist.broadcast, t, src=0)
     return bool(t.item())
 
 
@@ -238,7 +257,7 @@ def replicate_(state: Any, mesh: Optional[Mesh]) -> Any:
     tensors, as ``agent.state``) from rank 0, in place."""
     if mesh is not None:
         for t in _tensors_of(state):
-            dist.broadcast(t.data, src=0)
+            _issue(dist.broadcast, t.data, src=0)
     return state
 
 

@@ -245,6 +245,10 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
     ``device=None`` means the GPU; the assets must be on the same device.
     ``mesh``: this rank's rows of a data-parallel run; the rollout holds its
     envs, the agent is replicated.
+
+    Spans, as the off-policy step's: ``train.step`` (the root),
+    ``train.env`` around the rollout with its last value, ``train.update``
+    around the agent's update.
     """
     dev = resolve_device(device)
     fs = env_cfg.frame_stack
@@ -265,6 +269,11 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
 
     def train_step_fn(assets: Assets, carry: OnPolicyCarry
                       ) -> Tuple[OnPolicyCarry, Dict[str, torch.Tensor]]:
+        with spans.span("train.step"):
+            return _train_step(assets, carry)
+
+    def _train_step(assets: Assets, carry: OnPolicyCarry
+                    ) -> Tuple[OnPolicyCarry, Dict[str, torch.Tensor]]:
         _check_device(assets, dev)
         step_fn = env_step_of(assets)
         g, rs = carry.generator, carry.rollout
@@ -278,7 +287,7 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                        action=rows(2), log_prob=rows(), value=rows(),
                        reward=rows(), done=rows(dtype=torch.bool),
                        raw_reward=rows())
-        with torch.no_grad():
+        with spans.span("train.env"), torch.no_grad():
             for t in range(n_steps):
                 a, logp, value = agent.select_action(
                     rs.obs_stack, g,
@@ -303,8 +312,9 @@ def make_onpolicy_train_fns(env_cfg: EnvConfig, agent, num_envs: int,
                                   update_stack(rs.obs_stack, out.obs, done))
             last_value = agent.value(rs.obs_stack)
 
-        metrics = dict(agent.update(rollout, last_value, generator=g,
-                                    mesh=mesh))
+        with spans.span("train.update"):
+            metrics = dict(agent.update(rollout, last_value, generator=g,
+                                        mesh=mesh))
         metrics["mean_step_reward"] = global_mean(
             rollout["raw_reward"], n_steps * num_envs, mesh)
         new_carry = OnPolicyCarry(

@@ -34,6 +34,7 @@ from torchdriveenv_tpu_torch.rl.optim import (
     apply_grads,
     clip_by_global_norm_,
 )
+from torchdriveenv_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -216,9 +217,14 @@ class PPO(ActorCriticAgent):
         ``nonzero``: their number depends on the permutation), the
         advantages are normalized with all-reduced sums, the losses are this
         rank's sums over the minibatch size and the gradients are summed
-        before the clip."""
+        before the clip.
+
+        Spans (``utils/spans.py``, recorded only while someone looks):
+        ``ppo.gae``, ``ppo.grad_step`` around each gradient step and, under
+        a mesh, ``ppo.owned_rows`` around the owned-row read (its host time
+        is the wait for the device)."""
         cfg, st = self.cfg, self.state
-        with torch.no_grad():
+        with torch.no_grad(), spans.span("ppo.gae"):
             advs, returns = compute_gae(rollout["reward"], rollout["value"],
                                         rollout["done"], last_value,
                                         cfg.gamma, cfg.gae_lambda)
@@ -241,22 +247,25 @@ class PPO(ActorCriticAgent):
         rows = []
         for epoch in range(cfg.n_epochs):
             for mb in range(n // m):
-                idx = perms[epoch, mb * m:(mb + 1) * m]
-                if mesh is not None:
-                    idx = _owned_rows(idx, mesh, e)
-                mu, log_std, value = st.net(obs[idx])
-                logp = gaussian_log_prob(mu, log_std, action[idx])
-                ratio = torch.exp(logp - old_logp[idx])
-                adv = _normalized(advs[idx], m, mesh)
-                clipped = torch.clamp(ratio, 1 - cfg.clip_range,
-                                      1 + cfg.clip_range) * adv
-                pg_loss = -mean_over(torch.minimum(ratio * adv, clipped), m,
-                                     mesh)
-                v_loss = mean_over((value - returns[idx]) ** 2, m, mesh)
-                ent = mean_over(gaussian_entropy(log_std), m, mesh)
-                loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
-                self._step(loss, mesh)
-                rows.append(torch.stack([loss, pg_loss, v_loss, ent]).detach())
+                with spans.span("ppo.grad_step"):
+                    idx = perms[epoch, mb * m:(mb + 1) * m]
+                    if mesh is not None:
+                        with spans.span("ppo.owned_rows"):
+                            idx = _owned_rows(idx, mesh, e)
+                    mu, log_std, value = st.net(obs[idx])
+                    logp = gaussian_log_prob(mu, log_std, action[idx])
+                    ratio = torch.exp(logp - old_logp[idx])
+                    adv = _normalized(advs[idx], m, mesh)
+                    clipped = torch.clamp(ratio, 1 - cfg.clip_range,
+                                          1 + cfg.clip_range) * adv
+                    pg_loss = -mean_over(torch.minimum(ratio * adv, clipped),
+                                         m, mesh)
+                    v_loss = mean_over((value - returns[idx]) ** 2, m, mesh)
+                    ent = mean_over(gaussian_entropy(log_std), m, mesh)
+                    loss = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
+                    self._step(loss, mesh)
+                    rows.append(
+                        torch.stack([loss, pg_loss, v_loss, ent]).detach())
         st.step += 1
         means = torch.stack(rows).mean(0)
         all_reduce_([means], mesh)
