@@ -17,7 +17,11 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              envs with every agent and waypoint slot filled and crowded onto
              the ego); time the kernel and the twin, and print them beside
              both bounds and the number of segments that survive the
-             kernel's culls;
+             kernel's culls. Then the NPC controller's kernel
+             (csrc/npc_gaps.cu) against its twins leader_gaps + light_gaps,
+             bit for bit, on the 4096-env batch in route mode (the main
+             batch) and in policy mode (8 steps of a policy-mode env); the
+             kernel and the twins timed beside its bounds;
   2a. parity the card's correctness gate. (a) The JAX package's own outputs
              (torchdriveenv_tpu_torch/assets/jax_reference_v1.npz) replayed
              on the card by utils/reference.py: the 15 golden scripts of 60
@@ -65,8 +69,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              the default EnvConfig: 32 timed steps, then 32 more under
              torch.profiler, in which the kernel must have run once per
              render (its render_obs_kernel events; the step replays CUDA
-             graphs, so the host launches it none). Then 4 steps with
-             with_final_obs=True: the host launches the kernel in the first
+             graphs, so the host launches it none), then 32 more in which
+             the NPC kernel must have run once a step, with no host launch.
+             Then 4 steps with with_final_obs=True: the host launches the kernel in the first
              two (the eager step and the capture), the trace of the last
              two holds its four runs.
   3a. bench the bench's entry point (python -m torchdriveenv_tpu_torch.bench)
@@ -88,7 +93,8 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              features agree (the others, a share of at most 1e-4, are
              counted). (b) BatchedEnv(EnvConfig(npc_mode="policy")) at 4096
              envs: 32 timed steps, then 32 traced with 32 kernel runs and
-             no host launch, frames equal to the twin's, npc_hidden finite,
+             no host launch (the rasterizer's, then the NPC kernel's in 32
+             more), frames equal to the twin's, npc_hidden finite,
              non-zero for present NPCs and zero in restarted envs; one step
              with no synchronizing call; 4 steps with with_final_obs, as in
              [main].
@@ -1155,47 +1161,61 @@ def synchronizing_calls(fn):
 
 
 RASTER_KERNEL = "render_obs_kernel"
+NPC_KERNEL = "npc_gaps_kernel"
 
 
 @contextlib.contextmanager
-def rasterizer_runs():
-    """The rasterizer's work inside the block, set on the yielded namespace
-    at exit: ``runs``, the kernel's runs on the card, counted from the
-    ``render_obs_kernel`` events of a torch.profiler trace of the block
-    (the kernels a replayed CUDA graph runs are kernel events too); ``host``,
-    its launches from the host (``render_obs_cuda.launches``, set to 0 just
-    before), which an env step that replays its graphs does not add to."""
+def kernel_runs(kernel: str, launcher):
+    """A hand-written kernel's work inside the block, set on the yielded
+    namespace at exit: ``runs``, its runs on the card, counted from the
+    events named ``kernel`` of a torch.profiler trace of the block (the
+    kernels a replayed CUDA graph runs are kernel events too); ``host``, its
+    launches from the host (``launcher.launches``, set to 0 just before),
+    which an env step that replays its graphs does not add to."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
 
     got = types.SimpleNamespace(runs=None, host=None)
     torch.cuda.synchronize()
-    rc.render_obs_cuda.launches = 0
+    launcher.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         yield got
         torch.cuda.synchronize()
-    got.host = rc.render_obs_cuda.launches
-    got.runs = sum(e.device_type == DeviceType.CUDA and RASTER_KERNEL in e.name
+    got.host = launcher.launches
+    got.runs = sum(e.device_type == DeviceType.CUDA and kernel in e.name
                    for e in prof.events())
+
+
+def rasterizer_runs():
+    """``kernel_runs`` of the rasterizer (``render_obs_cuda``)."""
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+
+    return kernel_runs(RASTER_KERNEL, rc.render_obs_cuda)
+
+
+def npc_gaps_runs():
+    """``kernel_runs`` of the NPC controller's kernel (``npc_gaps_cuda``)."""
+    from torchdriveenv_tpu_torch.npc import route_follow as rf
+
+    return kernel_runs(NPC_KERNEL, rf.npc_gaps_cuda)
 
 
 TRACE_TRIES = 3
 
 
-def trace_runs(fn, want: int):
-    """fn() under ``rasterizer_runs``, traced again (TRACE_TRIES traces at
-    most) while a trace holds fewer than ``want`` kernel runs: the CUDA
-    activity records of a trace can lose kernels (a few hundred of some
-    35,000-kernel traces; a render in about one trace of 15 of 32 steps),
-    and never add one. -> (fn's last result, the runs of each trace, the
-    host launches in all of them)."""
+def trace_runs(fn, want: int, runs=rasterizer_runs):
+    """fn() under ``runs()`` (the rasterizer's by default), traced again
+    (TRACE_TRIES traces at most) while a trace holds fewer than ``want``
+    kernel runs: the CUDA activity records of a trace can lose kernels (a
+    few hundred of some 35,000-kernel traces; a render in about one trace of
+    15 of 32 steps), and never add one. -> (fn's last result, the runs of
+    each trace, the host launches in all of them)."""
     counts, host, out = [], 0, None
     while len(counts) < TRACE_TRIES and (not counts or counts[-1] < want):
-        with rasterizer_runs() as raster:
+        with runs() as got:
             out = fn()
-        counts.append(raster.runs)
-        host += raster.host
+        counts.append(got.runs)
+        host += got.host
     return out, counts, host
 
 
@@ -1217,6 +1237,98 @@ def host_per_step(name, rows, env_steps):
         check(r["host_launches"] == want,
               f"{name}: {r['host_launches']} host launches in train step "
               f"{i + 1}, not {want}")
+
+
+# f32 operations of the NPC kernel per (agent, candidate) pair, a cosine
+# counted as one: 2 sub, 2 mul, add, compare (lon); 2 mul, add (lat); sub,
+# cos (the heading cosine); abs, 3 compares (the leader test); add, div,
+# sub, compare (the gap against the best so far)
+NPC_PAIR_OPS = 19
+# ... per (agent, stopline) pair: 2 sub, 2 mul, add, 2 compares (lon); 2
+# mul, add, abs, compare (lat); sub, cos, compare (aligned); 2 sub, compare
+# (the gap against the best so far)
+NPC_STOPLINE_OPS = 18
+NPC_KERNEL_REPS = 100
+
+
+def npc_gaps_bounds_ms(b, a, n_lights, n_towns):
+    """Least time for one call of the NPC kernel: each agent's state,
+    length and presence read and its three outputs written once (33 bytes),
+    each env's town and red mask, each town's stoplines (midpoints' ends,
+    heading, mask: 21 bytes a line) once; against the f32 operations of
+    every (agent, other agent) and (agent, stopline) pair. Returns (bytes
+    ms, operations ms)."""
+    nbytes = b * a * 33 + b * (4 + n_lights) + n_towns * n_lights * 21
+    ops = b * a * ((a - 1) * NPC_PAIR_OPS + n_lights * NPC_STOPLINE_OPS)
+    return nbytes / PEAK_HBM_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
+
+
+def npc_gaps_check(assets, state, act, card) -> dict:
+    """[kernels] the NPC controller's kernel (``npc_gaps_cuda``) against its
+    plain twins ``leader_gaps`` + ``light_gaps`` on the card, bit for bit,
+    on the 4096-env batch ``state`` (route mode) and on a policy-mode env's
+    4096-env batch after 8 steps; the kernel and the twins timed on the
+    route-mode batch beside the bounds."""
+    from torchdriveenv_tpu_torch.config import EnvConfig
+    from torchdriveenv_tpu_torch.env.batched import BatchedEnv
+    from torchdriveenv_tpu_torch.npc import route_follow as rf
+    from torchdriveenv_tpu_torch.ops.traffic_lights import (LightState,
+                                                            light_states_at)
+
+    maps = assets.maps
+    dt = EnvConfig().simulator.dt
+
+    def compare(label, st):
+        t = st.time0 + st.step_idx.float() * dt
+        red = light_states_at(maps, st.town, t) != int(LightState.GREEN)
+        args = (st.agent_states.contiguous(), st.agent_attrs.contiguous(),
+                st.present.contiguous())
+        kern = rf.npc_gaps_cuda(maps, st.town, red, *args)
+        twin = (*rf.leader_gaps(*args),
+                rf.light_gaps(maps, st.town, t, *args[:2]))
+        torch.cuda.synchronize()
+        bad, err = 0, 0.0
+        for k, w in zip(kern, twin):
+            bad += int((~((k == w) | (torch.isnan(k) & torch.isnan(w)))).sum())
+            both = torch.isfinite(k) & torch.isfinite(w)
+            if bool(both.any()):
+                err = max(err, float((k - w)[both].abs().max()))
+        leaders = int(torch.isfinite(twin[0]).sum())
+        stops = int(torch.isfinite(twin[2]).sum())
+        log(f"[kernels] npc_gaps {label}: B={st.town.shape[0]} A="
+            f"{args[0].shape[1]} lights {maps.stop_dir.shape[1]}; agents with "
+            f"a leader {leaders}, with a blocking stopline {stops}; "
+            f"mismatched values {bad} of {3 * kern[0].numel()}")
+        check(bad == 0, f"npc_gaps kernel != twins on {label}")
+        check(leaders > 0 and stops > 0,
+              f"npc_gaps {label}: no leader or no blocking stopline")
+        return err, lambda: rf.npc_gaps_cuda(maps, st.town, red, *args), \
+            lambda: (rf.leader_gaps(*args),
+                     rf.light_gaps(maps, st.town, t, *args[:2]))
+
+    err, kern_fn, twin_fn = compare("route-mode main batch", state)
+    k_ms = cuda_ms(kern_fn, NPC_KERNEL_REPS)
+    p_ms = cuda_ms(twin_fn, 3)
+    b, a = state.agent_states.shape[:2]
+    b_ms, o_ms = npc_gaps_bounds_ms(b, a, maps.stop_dir.shape[1],
+                                    maps.stop_dir.shape[0])
+    # As for the rasterizer: the operations are those of evaluating every
+    # pair in full; a kernel that beats them skips work, and only the bytes
+    # still bound it.
+    bound, bound_by = (o_ms, "operations") if k_ms >= o_ms else (b_ms, "bytes")
+    log(f"[kernels] npc_gaps route-mode main batch: kernel {k_ms:.4f} ms, "
+        f"twins {p_ms:.4f} ms, bounds: bytes {b_ms:.4f} ms, operations "
+        f"{o_ms:.4f} ms [{card}]")
+
+    penv = BatchedEnv(EnvConfig(npc_mode="policy"), assets, N_ENVS, seed=5)
+    pstate, _ = penv.reset()
+    for _ in range(8):
+        pstate = penv.step(pstate, act).state
+    policy_err = compare("policy-mode batch after 8 steps", pstate)[0]
+    del penv, pstate
+    return dict(max_abs_err=err, policy_max_abs_err=policy_err, ms=k_ms,
+                plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
+                bytes_bound_ms=b_ms, operations_bound_ms=o_ms)
 
 
 def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
@@ -1333,6 +1445,14 @@ def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
         f"{int((running[:, None] & npc).sum())} present NPCs of running envs, "
         f"zero in the {int((~running).sum())} envs restarted this step; "
         f"mean |h| {float(hidden.abs().mean()):.4f}")
+    _, npc_counts, npc_host = trace_runs(traced, TIMED_STEPS,
+                                         runs=npc_gaps_runs)
+    log(f"[npc] policy-mode main path: in traces of {TIMED_STEPS} more "
+        f"steps, NPC kernel runs {npc_counts}, host launches {npc_host}")
+    check(max(npc_counts) == TIMED_STEPS, f"{npc_counts} NPC kernel runs in "
+          f"{TIMED_STEPS} policy-mode steps")
+    check(npc_host == 0, f"{npc_host} NPC kernel host launches in steps that "
+          "replay their graphs")
     phases = phase_ms(cfg, assets, state, env.generator)
     log("[npc] phase ms per step: "
         + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()) + f" [{card}]")
@@ -1368,6 +1488,7 @@ def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
           f"host launches {f_host}, {host} with with_final_obs")
     result.update(env_steps_per_s=steps_per_s, timed_steps=TIMED_STEPS,
                   num_envs=N_ENVS, rasterizer_runs=launches,
+                  npc_gaps_runs=max(npc_counts),
                   route_env_steps_per_s=route_steps_per_s, phases_ms=phases,
                   synchronizing_calls_in_a_step=where,
                   with_final_obs_runs=f_launches)
@@ -4506,6 +4627,7 @@ def main() -> int:
             crowd_prep)
     compare("crowded batch, right-handed", crowd.town, crowd_prep,
             left_handed=False)
+    npc_cmp = npc_gaps_check(assets, state, act, card)
 
     parity = parity_phase(card)
     maps_path = maps_phase(assets, state, card)
@@ -4559,6 +4681,14 @@ def main() -> int:
     log(f"[main] agents present per env: "
         f"{state.present.float().sum(1).mean():.1f}; "
         f"done this step: {int((out.terminated | out.truncated).sum())}")
+    _, npc_counts, npc_host = trace_runs(traced, TIMED_STEPS,
+                                         runs=npc_gaps_runs)
+    log(f"[main] in traces of {TIMED_STEPS} more steps, NPC kernel runs "
+        f"{npc_counts}, host launches {npc_host}")
+    check(max(npc_counts) == TIMED_STEPS, f"NPC kernel ran {npc_counts} "
+          f"times in {TIMED_STEPS} steps")
+    check(npc_host == 0, f"{npc_host} NPC kernel host launches in steps that "
+          "replay their graphs")
 
     phases = phase_ms(cfg, assets, state, env.generator)
     log("[main] phase ms per step: "
@@ -4620,6 +4750,22 @@ def main() -> int:
             "frame_segments_mean", "tile_segments_mean", "tile_segments_max",
             "tile_agents_mean", "tile_waypoints_mean", "tile_stoplines_mean",
             "tile_ego_share")},
+    }, {
+        "name": "npc_gaps",
+        "route": "cuda",
+        "source": "torchdriveenv_tpu_torch/csrc/npc_gaps.cu",
+        "replaces": "torchdriveenv_tpu/npc/route_follow.py:47",
+        "launches": max(npc_counts),
+        "policy_launches": npc["npc_gaps_runs"],
+        "max_abs_err": npc_cmp["max_abs_err"],
+        "policy_max_abs_err": npc_cmp["policy_max_abs_err"],
+        "ms": npc_cmp["ms"],
+        "plain_ms": npc_cmp["plain_ms"],
+        "bound_ms": npc_cmp["bound_ms"],
+        "bound_by": npc_cmp["bound_by"],
+        "library_ms": None,
+        "bytes_bound_ms": npc_cmp["bytes_bound_ms"],
+        "operations_bound_ms": npc_cmp["operations_bound_ms"],
     }] + [map_kernel_line(maps_path, name) for name in ("stamp", "edt")],
         "main_path": {"env_steps_per_s": steps_per_s, "timed_steps":
                       TIMED_STEPS, "num_envs": N_ENVS, "obs_checksum": checksum,

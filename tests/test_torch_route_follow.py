@@ -91,3 +91,30 @@ def test_npc_actions(jassets, tassets, state):
     got = trf.npc_actions(tassets.maps, *map(torch.from_numpy, args))
     assert got.shape == (4, 96, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _gap_args(tassets, state):
+    return (tassets.maps, *map(torch.from_numpy, (
+        state.town, _t(state), state.agent_states, state.agent_attrs,
+        state.present)))
+
+
+def test_nearest_obstacles_takes_the_twins_on_the_cpu(tassets, state):
+    """On CPU tensors nearest_obstacles returns the plain leader_gaps and
+    light_gaps, launches no kernel, and the scene has finite gaps of both
+    kinds."""
+    maps, town, t, st, at, pr = _gap_args(tassets, state)
+    before = trf.npc_gaps_cuda.launches
+    got = trf.nearest_obstacles(maps, town, t, st, at, pr)
+    want = (*trf.leader_gaps(st, at, pr), trf.light_gaps(maps, town, t, st, at))
+    assert trf.npc_gaps_cuda.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.isfinite(got[0]).any() and torch.isfinite(got[2]).any()
+
+
+def test_npc_gaps_cuda_refuses_cpu_tensors(tassets, state):
+    maps, town, t, st, at, pr = _gap_args(tassets, state)
+    red = torch.ones((town.shape[0], maps.stop_dir.shape[1]), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        trf.npc_gaps_cuda(maps, town, red, st, at, pr)

@@ -158,8 +158,8 @@ def _features(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
                        herr)
     edge = gx * lx + gy * ly
 
-    leader_gap, leader_v = rf.leader_gaps(states, attrs, present)
-    light_gap = rf.light_gaps(maps, town, t, states, attrs)
+    leader_gap, leader_v, light_gap = rf.nearest_obstacles(
+        maps, town, t, states, attrs, present)
     lg = torch.clamp(torch.where(torch.isfinite(leader_gap), leader_gap,
                                  torch.full_like(leader_gap, 60.0)), 0.0, 60.0)
     dv = torch.clamp(v - leader_v, -10.0, 10.0)

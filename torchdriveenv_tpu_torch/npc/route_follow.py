@@ -3,18 +3,25 @@
 
 NPCs follow the compiled lane direction field with an IDM longitudinal
 controller, keep off road edges using the SDF gradient, brake for leaders
-and for non-green stoplines. Everything is batched over ``(B, A)``; the
-pairwise leader search builds ``(B, A, A)`` tiles.
+and for non-green stoplines. Everything is batched over ``(B, A)``.
+
+``nearest_obstacles`` gives the controller its nearest obstacle and stopline
+ahead: on the card by the hand-written kernel ``csrc/npc_gaps.cu``, which
+keeps the pairs on chip; on the CPU by the plain twins ``leader_gaps`` and
+``light_gaps``, which build ``(B, A, A)`` and ``(B, A, L)`` tiles.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
 from torchdriveenv_tpu_torch.maps.arrays import MapArrays, exact_div, sample_npc_field
+from torchdriveenv_tpu_torch.ops import _build
 from torchdriveenv_tpu_torch.ops.traffic_lights import LightState, light_states_at
 
 # IDM parameters (standard motorway values, Treiber et al. 2000)
@@ -30,8 +37,18 @@ EMERG_RANGE = 16.0
 EMERG_HEADWAY = 1.8
 EMERG_LAT = 3.0
 LANE_OFFSET = 1.75
+SAME_DIR_COS = -0.2     # a leader's heading differs by under ~102 degrees
+EMERG_BASE = 10.0       # emergency range at standstill, before the floor
+EMERG_LAT_SLOPE = 0.1   # the emergency cone widens this much a metre ahead
+CLOSING_FLOOR = 1e-3    # least closing speed in the time to closest approach
+TC_MAX = 4.0            # longest time to closest approach looked at
+ONCOMING_COS = -0.5     # oncoming: headings differ by over 120 degrees
+ONCOMING_LAT = 2.0      # an oncoming miss closer than this brakes
+CLOSING_MIN = 0.5       # ... when closing faster than this
 LIGHT_RANGE = 30.0
 LIGHT_LAT = 4.0
+ALIGNED_COS = 0.5       # a stopline applies within 60 degrees of its heading
+STOP_MARGIN = 1.0       # stop this far short of the line
 
 # 2 * sqrt(a * b) rounded as the JAX code rounds it: an f32 sqrt of an f32
 _IDM_DENOM = float(np.float32(2.0) * np.sqrt(np.float32(IDM_A_MAX * IDM_B)))
@@ -59,14 +76,15 @@ def obstacle_gaps(states: torch.Tensor, attrs: torch.Tensor,
     lon = relx * fx[..., None] + rely * fy[..., None]
     lat = relx * lx[..., None] + rely * ly[..., None]
     cospsi = torch.cos(psi[:, None, :] - psi[:, :, None])
-    same_dir = cospsi > -0.2
+    same_dir = cospsi > SAME_DIR_COS
     pair = present[:, None, :] & present[:, :, None] & (lon > 0.0)
     # cruising leader: same-direction traffic ahead in my lane corridor
     is_leader = (pair & (lon < LEADER_RANGE)
                  & (torch.abs(lat) < LEADER_LAT) & same_dir)
     # emergency obstacle: anything directly ahead at short range, in a cone
-    emerg_d = torch.clamp(10.0 + EMERG_HEADWAY * v, min=EMERG_RANGE)[..., None]
-    emerg_lat = EMERG_LAT + 0.1 * lon
+    emerg_d = torch.clamp(EMERG_BASE + EMERG_HEADWAY * v,
+                          min=EMERG_RANGE)[..., None]
+    emerg_lat = EMERG_LAT + EMERG_LAT_SLOPE * lon
     in_cone = torch.abs(lat) < emerg_lat
     # oncoming pairs brake only on a predicted miss inside one lane width
     velx, vely = v * fx, v * fy
@@ -75,10 +93,11 @@ def obstacle_gaps(states: torch.Tensor, attrs: torch.Tensor,
     vrel_lon = vrelx * fx[..., None] + vrely * fy[..., None]
     vrel_lat = vrelx * lx[..., None] + vrely * ly[..., None]
     closing = -vrel_lon
-    tc = torch.clamp(lon / torch.clamp(closing, min=1e-3), 0.0, 4.0)
+    tc = torch.clamp(lon / torch.clamp(closing, min=CLOSING_FLOOR), 0.0, TC_MAX)
     lat_pred = lat + vrel_lat * tc
-    oncoming = cospsi < -0.5
-    oncoming_hit = (torch.abs(lat_pred) < 2.0) & (closing > 0.5)
+    oncoming = cospsi < ONCOMING_COS
+    oncoming_hit = ((torch.abs(lat_pred) < ONCOMING_LAT)
+                    & (closing > CLOSING_MIN))
     is_emerg = (pair & (lon < emerg_d)
                 & torch.where(oncoming, oncoming_hit, in_cone))
     a = states.shape[1]
@@ -120,11 +139,11 @@ def stopline_gaps(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
     sl_lon = relx * fx[..., None] + rely * fy[..., None]
     sl_lat = relx * lx[..., None] + rely * ly[..., None]
     red = light_states_at(maps, town, t) != int(LightState.GREEN)  # (B, L)
-    aligned = torch.cos(psi[..., None] - maps.stop_dir[tw][:, None, :]) > 0.5
+    aligned = torch.cos(psi[..., None] - maps.stop_dir[tw][:, None, :]) > ALIGNED_COS
     sl_active = (maps.light_mask[tw][:, None, :] & red[:, None, :] & aligned
                  & (sl_lon > 0.0) & (sl_lon < LIGHT_RANGE)
                  & (torch.abs(sl_lat) < LIGHT_LAT))
-    sl_gap = sl_lon - length[..., None] / 2.0 - 1.0
+    sl_gap = sl_lon - length[..., None] / 2.0 - STOP_MARGIN
     return torch.where(sl_active, sl_gap, torch.full_like(sl_gap, math.inf))
 
 
@@ -133,6 +152,82 @@ def light_gaps(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
     """Distance to the nearest blocking (non-green) stopline per agent,
     +inf when none applies. -> (B, A)."""
     return stopline_gaps(maps, town, t, states, attrs).amin(dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_params():
+    """The kernel's f32 constants in its ``Params`` order: those of
+    ``obstacle_gaps`` and ``stopline_gaps``, rounded as torch rounds them."""
+    vals = [LEADER_RANGE, LEADER_LAT, SAME_DIR_COS, EMERG_BASE, EMERG_HEADWAY,
+            EMERG_RANGE, EMERG_LAT, EMERG_LAT_SLOPE, CLOSING_FLOOR, TC_MAX,
+            ONCOMING_COS, ONCOMING_LAT, CLOSING_MIN, LIGHT_RANGE, LIGHT_LAT,
+            ALIGNED_COS, STOP_MARGIN]
+    return (ctypes.c_float * len(vals))(*np.asarray(vals, np.float32).tolist())
+
+
+_check = functools.partial(_build.check_tensor, "npc_gaps_cuda")
+
+
+def npc_gaps_cuda(maps: MapArrays, town: torch.Tensor, red: torch.Tensor,
+                  states: torch.Tensor, attrs: torch.Tensor,
+                  present: torch.Tensor):
+    """Launch the kernel of ``csrc/npc_gaps.cu`` on CUDA tensors, on the
+    current stream -> (leader_gap, leader_v, light_gap), each (B, A) f32.
+    ``red`` (B, L) bool: the stoplines whose light is not green. Raises on
+    tensors elsewhere than the GPU, on any other dtype, shape or layout, on a
+    failed build and on a failed launch. ``npc_gaps_cuda.launches`` counts
+    the launches from the host (a replayed CUDA graph adds none)."""
+    dev = states.device
+    if dev.type != "cuda":
+        raise ValueError("npc_gaps_cuda needs CUDA tensors; got "
+                         f"{dev} (use leader_gaps and light_gaps on the CPU)")
+    b, a = states.shape[:2]
+    n_town, n_lights = maps.stop_dir.shape
+    _check("states", states, torch.float32, (b, a, 4), dev)
+    _check("attrs", attrs, torch.float32, (b, a, attrs.shape[-1]), dev)
+    _check("present", present, torch.bool, (b, a), dev)
+    _check("town", town, torch.int32, (b,), dev)
+    _check("red", red, torch.bool, (b, n_lights), dev)
+    _check("stop_p0", maps.stop_p0, torch.float32, (n_town, n_lights, 2), dev)
+    _check("stop_p1", maps.stop_p1, torch.float32, (n_town, n_lights, 2), dev)
+    _check("stop_dir", maps.stop_dir, torch.float32, (n_town, n_lights), dev)
+    _check("light_mask", maps.light_mask, torch.bool, (n_town, n_lights), dev)
+    out = torch.empty((3, b, a), dtype=torch.float32, device=dev)
+    if b == 0 or a == 0:
+        return out[0], out[1], out[2]
+    lib = _build.load_npc_gaps()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tde_npc_gaps(
+            states.data_ptr(), attrs.data_ptr(), present.data_ptr(),
+            town.data_ptr(), red.data_ptr(), maps.stop_p0.data_ptr(),
+            maps.stop_p1.data_ptr(), maps.stop_dir.data_ptr(),
+            maps.light_mask.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), b, a, attrs.shape[-1], n_lights,
+            _kernel_params(), stream)
+    if rc != 0:
+        raise RuntimeError(f"npc_gaps kernel launch failed: CUDA error {rc} "
+                           f"({lib.tde_npc_gaps_error_string(rc).decode()})")
+    npc_gaps_cuda.launches += 1
+    return out[0], out[1], out[2]
+
+
+npc_gaps_cuda.launches = 0    # kernel launches since the last reset to 0
+
+
+def nearest_obstacles(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
+                      states: torch.Tensor, attrs: torch.Tensor,
+                      present: torch.Tensor):
+    """Nearest obstacle and blocking stopline ahead of every agent ->
+    (leader_gap (B, A), leader_v (B, A), light_gap (B, A)): what
+    ``leader_gaps`` and ``light_gaps`` return, bit for bit; by the kernel
+    for CUDA inputs, by those twins for CPU inputs."""
+    if not states.is_cuda:
+        leader_gap, leader_v = leader_gaps(states, attrs, present)
+        return leader_gap, leader_v, light_gaps(maps, town, t, states, attrs)
+    red = light_states_at(maps, town, t) != int(LightState.GREEN)
+    return npc_gaps_cuda(maps, town, red, states.contiguous(),
+                         attrs.contiguous(), present.contiguous())
 
 
 def npc_actions(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
@@ -164,8 +259,8 @@ def npc_actions(maps: MapArrays, town: torch.Tensor, t: torch.Tensor,
 
     # longitudinal control: IDM against the nearest leader; non-green
     # stoplines are stationary obstacles
-    leader_gap, leader_v = leader_gaps(states, attrs, present)
-    light_gap = light_gaps(maps, town, t, states, attrs)
+    leader_gap, leader_v, light_gap = nearest_obstacles(
+        maps, town, t, states, attrs, present)
 
     use_light = light_gap < leader_gap
     gap = torch.where(use_light, light_gap, leader_gap)

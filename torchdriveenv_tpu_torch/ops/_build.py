@@ -20,13 +20,30 @@ import shutil
 import subprocess
 from typing import Dict, Sequence
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-KERNELS = ("rasterizer", "mapkit")
+KERNELS = ("rasterizer", "mapkit", "npc_gaps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+
+def check_tensor(fn: str, name: str, x: torch.Tensor, dtype, shape,
+                 device) -> None:
+    """Raise unless ``x``, argument ``name`` of the kernel wrapper ``fn``,
+    lies on ``device`` with this dtype and shape, contiguous."""
+    if x.device != device:
+        raise ValueError(f"{fn}: {name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{fn}: {name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{fn}: {name} is not contiguous")
 
 
 def nvcc_path() -> str:
@@ -103,4 +120,18 @@ def load_mapkit() -> ctypes.CDLL:
     lib.tde_edt.restype = ci
     lib.tde_mapkit_error_string.argtypes = [ci]
     lib.tde_mapkit_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_npc_gaps() -> ctypes.CDLL:
+    """The NPC controller's library (``tde_npc_gaps``), built at first use."""
+    build(("npc_gaps",))
+    lib = ctypes.CDLL(library_path("npc_gaps"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.tde_npc_gaps.argtypes = ([vp] * 12 + [ci] * 4
+                                 + [ctypes.POINTER(ctypes.c_float), vp])
+    lib.tde_npc_gaps.restype = ci
+    lib.tde_npc_gaps_error_string.argtypes = [ci]
+    lib.tde_npc_gaps_error_string.restype = ctypes.c_char_p
     return lib

@@ -25,6 +25,7 @@ kernel, and the CUDA source is built with ``--fmad=false``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -467,18 +468,7 @@ def _kernel_params(res: int, fov: float, highlight_ego: bool):
     return (ctypes.c_float * len(vals))(*np.asarray(vals, np.float32).tolist())
 
 
-def _check(name: str, x: torch.Tensor, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"render_obs_cuda: {name} is on {x.device}, "
-                         f"expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"render_obs_cuda: {name} has dtype {x.dtype}, "
-                        f"expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"render_obs_cuda: {name} has shape "
-                         f"{tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"render_obs_cuda: {name} is not contiguous")
+_check = functools.partial(_build.check_tensor, "render_obs_cuda")
 
 
 def _launch(maps: MapArrays, town, ci, cj, nseg, env_block, agent_block,

@@ -241,7 +241,12 @@ class _Ref:
         self.data, self.device = data, device
 
     def tensor(self, key):
-        return torch.as_tensor(np.asarray(self.data[key]), device=self.device)
+        # JAX made every array with x64 off, so a float64 array of the file
+        # (the golden "brake" script) was f32 there
+        x = np.asarray(self.data[key])
+        if x.dtype == np.float64:
+            x = x.astype(np.float32)
+        return torch.as_tensor(x, device=self.device)
 
     def group(self, prefix) -> Dict[str, torch.Tensor]:
         p = prefix + "/"
