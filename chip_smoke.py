@@ -1,5 +1,11 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch / CUDA port (torchdriveenv_tpu_torch).
+"""The card's correctness gate for the PyTorch / CUDA port
+(torchdriveenv_tpu_torch).
+
+It times nothing but the hand-written kernels (phase 2 and [maps], beside
+their bounds) and the wall seconds of its own phases and runs: the port's
+speed is measured by the benchmark (python3 -m benchmark.run), and its
+phases' times by the spans of utils/spans.py.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -66,43 +72,33 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              with the compiled maps: at most a 1e-3 share of pixels apart
              from the shipped maps' frames.
   3. main    drive the port's main path, BatchedEnv.step at 4096 envs with
-             the default EnvConfig: 32 timed steps, then 32 more under
-             torch.profiler, in which the kernel must have run once per
-             render (its render_obs_kernel events; the step replays CUDA
-             graphs, so the host launches it none), then 32 more in which
-             the NPC kernel must have run once a step, with no host launch.
-             Then 4 steps with with_final_obs=True: the host launches the kernel in the first
-             two (the eager step and the capture), the trace of the last
-             two holds its four runs.
-  3a. bench the bench's entry point (python -m torchdriveenv_tpu_torch.bench)
-             in its two modes. --breakdown at 4096 route-mode envs, chunks
-             of 16, 3 timed: the step's least bytes and operations counted
-             from shapes, its shares of the f32 and HBM peaks in (0, 1], its
-             least time no more than the measured one, the render's least
-             time no more than the kernel's on the same inputs. --mesh at
-             4096 envs, chunks of 8, 2 timed: one rank under nccl (torchrun's
-             variables) and two gloo ranks sharing the card (rank 0 also
-             writes the breakdown of its rows), each against one process of
-             the same seed and steps: the frames' checksum summed over the
-             ranks exact, the rewards' within rtol 1e-5. Each run is traced
-             with torch.profiler and the kernel's runs counted in it.
+             the default EnvConfig: after 4 steps, 32 under torch.profiler,
+             in which the kernel must have run once per render (its
+             render_obs_kernel events; the step replays CUDA graphs, so the
+             host launches it none), then 32 more in which the NPC kernel
+             must have run once a step, with no host launch. Then 4 steps
+             with with_final_obs=True: the host launches the kernel in the
+             first two (the eager step and the capture), the trace of the
+             last two holds its four runs.
   4. npc   the GRU NPC policy. (a) The shipped weights on the 4096-env
              policy-mode batch after 8 steps, card (TF32 off) against the
              CPU: atol 1e-5 on actions and hidden state, on the card's own
              features and through the features for every agent whose
              features agree (the others, a share of at most 1e-4, are
              counted). (b) BatchedEnv(EnvConfig(npc_mode="policy")) at 4096
-             envs: 32 timed steps, then 32 traced with 32 kernel runs and
-             no host launch (the rasterizer's, then the NPC kernel's in 32
-             more), frames equal to the twin's, npc_hidden finite,
+             envs: 32 traced steps with 32 kernel runs and no host launch
+             (the rasterizer's, then the NPC kernel's in 32 more), frames
+             equal to the twin's, npc_hidden finite,
              non-zero for present NPCs and zero in restarted envs; one step
              with no synchronizing call; 4 steps with with_final_obs, as in
              [main].
   5. gym   render_egocentric (the SDF-grid birdview) on the card against the
              CPU on the main path's 4096 envs at 64 px (at most a 1e-3 share
-             of pixels may differ), timed there and at 1024 px / 500 m; then,
-             where gymnasium imports, one validation episode of
-             gym.make("torchdriveenv-torch-v0") with video and one without.
+             of pixels may differ), and one frame at 1024 px / 500 m; the
+             adapter's step at B = 1 without gymnasium, 100 steps and 100
+             with the video frame; then, where gymnasium imports, one
+             validation episode of gym.make("torchdriveenv-torch-v0") with
+             video and one without.
   6. learner the SAC learner path. (a) The shipped deliverable actor on the
              4096-env batch's frame stacks, f32 on the card against f32 on
              the CPU (atol 1e-4), then with the default bf16 torso. (b) The
@@ -116,9 +112,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              rasterizer's host launches are counted in each train step and
              in the evaluation: a new step function launches it in its first
              two calls (the eager one and the capture of its CUDA graphs)
-             and never after; the kernel's runs are counted in a trace of a
-             train step (2 per env step) and of the second evaluation (1
-             per step).
+             and never after; the kernel's runs are counted in a trace of
+             the late train steps (2 per env step) and of the second
+             evaluation (1 per step).
   7. train   the training CLI's function (rl/train.py:train) on the card,
              from configs that equal the repo's YAML files (RECIPES below;
              where PyYAML imports, the files themselves are loaded and
@@ -132,14 +128,11 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              about three thousand env steps each; the stage-1 SAC recipe with
              the GRU driving every NPC (artifacts/sac_npcpolicy_run.yml: 128
              envs, a 4.9 GB ring, 64 updates of 512) for 3 train steps, its
-             npc_hidden carried. Every train step is timed with CUDA events
-             (rollout / update split at the first agent.update) and its
-             rasterizer host launches counted (those of the env step's first
-             two calls, then none); after each run one more train step is
-             traced, in which the kernel must run twice per env step; one
-             PPO train step must make no synchronizing call. Then PPO train
-             steps in turns at torch's default precision (cuDNN TF32) and
-             the port's f32.
+             npc_hidden carried. Every train step's rasterizer host launches
+             are counted (those of the env step's first two calls, then
+             none); after each run one more train step is traced, in which
+             the kernel must run twice per env step; one PPO train step must
+             make no synchronizing call.
   8. tools   the user workflow around training, in the deliverable's order
              (TRAINING.md:226-231). tools/bc_pretrain at the deliverable's
              width: 128 envs x 600 scripted steps = 76,800 frame stacks
@@ -154,8 +147,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              steps driven by it. tools/diagnose_val: the six probes (sac =
              the BC checkpoint) on the 5 validation cases, 16 episodes of 50
              steps (cut from the 200-step horizon). tools/audit_map_fidelity
-             on the card, its counts equal to the CPU's. tools/profile_learner
-             at batches 256 and 512 and tools/profile_step at 4096 envs.
+             on the card, its counts equal to the CPU's.
   9. multi   data parallelism over torch.distributed, its ranks run as
              subprocesses of this script (--multi-worker), each with a
              timeout. World 1 under nccl (torchrun-style variables,
@@ -174,8 +166,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              more each whose synchronizing calls are counted by source
              line. A one-process witness, cuDNN on and off: a SAC critic
              gradient taken whole and as the sum over the two ranks' rows,
-             one Adam step apart. Two ranks on one card is a correctness
-             check: its times are not a scaling figure. The drift case: two
+             one Adam step apart. The drift case: two
              gloo ranks on the card and two single processes (cuDNN on, the
              reference; cuDNN off, the yardstick), started together, each
              taking 200 train steps of the stage-1 SAC recipe shrunk to 64
@@ -187,9 +178,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              states). The recipe freezes the actor and scripts every env
              for these steps: the case trains the critic on data the
              learner does not steer.
-Then it prints one JSON line describing each kernel and the paths, the
-card's name and power limit, and as the last line {"ok": true, "device":
-{...}}.
+Then it prints one JSON line describing each kernel (its times and
+bounds) and what each phase checked, the card's name and power limit, and
+as the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --cards 4
 
@@ -201,14 +192,13 @@ fails. Stage B, four ranks: PPO from ppo_1024.yml at 4096 envs and at its
 own 1024, and the stage-1 SAC recipe (128 envs, a 3125-cell ring), f32
 with cuDNN off, 3 train steps each (PPO at 1024 and SAC with full_latest
 at train step 2 and at the end, and resumed from the step-2 file for one
-train step); then the timing runs at the recipes' precision (PPO at 4096
-envs and at 4096 a card, SAC; 4 train steps, the 3rd and 4th timed: rank
-0 evaluates after the 1st while the others wait in the 2nd). Stage C,
-one process a card side by side: the same three runs as references, the
-step-2 files resumed in one process, the one-card timing runs, and two
-witnesses of summation order (the first updating train step of PPO at
-4096 envs and of SAC taken twice from one state, the second time with
-each batch's rows in another order). Stage D: the README's command, python -m
+train step); then the same recipes at their own precision (PPO at 4096
+envs and at 4096 a card, SAC; 3 train steps). Stage C, one process a
+card side by side: the same three parity runs as references, the step-2
+files resumed in one process, and two witnesses of summation order (the
+first updating train step of PPO at 4096 envs and of SAC taken twice from
+one state, the second time with each batch's rows in another order).
+Stage D: the README's command, python -m
 torch.distributed.run --standalone --nproc_per_node 4 -m
 torchdriveenv_tpu_torch.rl.train --config_file ppo_1024.yml at 4096 envs
 for 3 train steps, its evaluation and video included. Held: the ranks'
@@ -222,19 +212,16 @@ rasterizer launches per env step on every rank, rendering its own rows
 (and the reset pool); model_* and full_latest written by rank 0 alone;
 the resume at world 4 bit-equal to the run without a break; the resume in
 one process with its step count, generator, env rows and replay ring
-equal and its first 3 updates within the Adam tolerance. Printed:
-train-step times (rollout / update) of the slowest rank and the ranks'
-range, env-steps/s, the host's wait in the owned-row nonzero reads
-against the update on each rank, peak memory beside the replay
-ring, rank 0's evaluation gap against nccl's default timeout; the same
-last line, whose count is then 4.
+equal and its first 3 updates within the Adam tolerance; 2 rasterizer
+launches per env step in the recipe-precision runs too. Printed: peak
+memory beside the replay ring, rank 0's evaluation gap against nccl's
+default timeout; the same last line, whose count is then 4.
 """
 
 import contextlib
 import copy
 import dataclasses
 import importlib
-import io
 import json
 import math
 import os
@@ -253,7 +240,7 @@ import torch
 PEAK_F32_OPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 N_ENVS = 4096
-TIMED_STEPS = 32
+TRACED_STEPS = 32
 
 
 def log(msg: str) -> None:
@@ -809,7 +796,6 @@ def check(cond, msg: str) -> None:
 def learner_phase(assets, env, state, act, card) -> dict:
     """Phase 6: the SAC learner path on the card. ``env`` / ``state`` are the
     main path's 4096-env batch, ``act`` its constant action."""
-    from torchdriveenv_tpu_torch.bench import profile_steps
     from torchdriveenv_tpu_torch.config import EnvConfig, construct_rl_training_config
     from torchdriveenv_tpu_torch.env.batched import make_env_fns
     from torchdriveenv_tpu_torch.maps.arrays import load_assets
@@ -837,22 +823,17 @@ def learner_phase(assets, env, state, act, card) -> dict:
         a32 = torch.tanh(actor32(stack)[0])
         a16 = torch.tanh(actor16(stack)[0])
         a_cpu = torch.tanh(actor_cpu(stack[:256].cpu())[0])
-        f32_ms = cuda_ms(lambda: actor32(stack), 20)
-        bf16_ms = cuda_ms(lambda: actor16(stack), 20)
     err = float((a32[:256].cpu() - a_cpu).abs().max())
     bf16_diff = float((a16 - a32).abs().max())
     log(f"[learner] deliverable actor on {stack.shape[0]} frame stacks: card "
         f"f32 against CPU f32 on 256 of them, max |tanh(mu)| error {err:.3e} "
         f"(atol 1e-4); bf16 torso against f32 on the card, max action "
         f"difference {bf16_diff:.3e}; actions span "
-        f"[{float(a32.min()):.3f}, {float(a32.max()):.3f}]")
-    log(f"[learner] actor forward at {tuple(stack.shape)}: f32 {f32_ms:.3f} ms, "
-        f"bf16 torso {bf16_ms:.3f} ms [{card}]")
+        f"[{float(a32.min()):.3f}, {float(a32.max()):.3f}] [{card}]")
     check(a32.shape == (N_ENVS, 2) and torch.isfinite(a32).all(),
           "actor output")
     check(err <= 1e-4, f"actor on the card differs from the CPU by {err}")
     result["actor"] = dict(max_abs_err_vs_cpu=err, bf16_max_action_diff=bf16_diff,
-                           forward_f32_ms=f32_ms, forward_bf16_ms=bf16_ms,
                            batch=N_ENVS)
     del stack, out, a32, a16
 
@@ -888,53 +869,20 @@ def learner_phase(assets, env, state, act, card) -> dict:
     def moved(a, b):
         return any(not torch.equal(a[n], b[n]) for n in a)
 
-    # the boundary between a train step's env steps and its updates is the
-    # first call of agent.update: mark it with an event
-    marks = []
-
-    def mark_first_update(agent):
-        plain_update = agent.update
-
-        def marked_update(*args, **kw):
-            if not marks:
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append(ev)
-            return plain_update(*args, **kw)
-
-        agent.update = marked_update
-
-    mark_first_update(agent)
-
-    def timed_train_step(step_fn, carry):
-        """-> (carry, metrics as floats, the rasterizer's host launches,
-        total / env / update ms on the device's clock, wall ms)."""
-        marks.clear()
-        torch.cuda.synchronize()
+    def counted_train_step(step_fn, carry):
+        """-> (carry, metrics as floats, the rasterizer's host launches)."""
         rc.render_obs_cuda.launches = 0
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
-        e0.record()
         carry, m = step_fn(assets, carry)
-        e1.record()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        total = e0.elapsed_time(e1)
-        env_ms = e0.elapsed_time(marks[0]) if marks else total
         return (carry, {k: float(v) for k, v in m.items()},
-                rc.render_obs_cuda.launches, total, env_ms, total - env_ms, wall)
+                rc.render_obs_cuda.launches)
 
     before = snapshot()
     log_alpha0 = st.log_alpha.detach().clone()
-    rows = []
     for it in range(6):
-        carry, m, n_launch, total, env_ms, upd_ms, wall = timed_train_step(
-            train_step, carry)
-        rows.append((total, env_ms, upd_ms, wall))
-        log(f"[learner] recipe train step {it + 1}: {total:.1f} ms on the "
-            f"device's clock ({wall:.1f} ms wall) = env steps {env_ms:.1f} + "
-            f"updates {upd_ms:.1f}; rasterizer host launches {n_launch}; "
-            + ", ".join(f"{k} {v:.4g}" for k, v in m.items()) + f" [{card}]")
+        carry, m, n_launch = counted_train_step(train_step, carry)
+        log(f"[learner] recipe train step {it + 1}: rasterizer host launches "
+            f"{n_launch}; " + ", ".join(f"{k} {v:.4g}" for k, v in m.items())
+            + f" [{card}]")
         check(n_launch == host_launches(it * RECIPE_STEPS_PER_ITER,
                                         RECIPE_STEPS_PER_ITER),
               f"{n_launch} rasterizer host launches in train step {it + 1}")
@@ -968,7 +916,7 @@ def learner_phase(assets, env, state, act, card) -> dict:
     _, train_step_late = make_offpolicy_train_fns(
         cfg, agent, RECIPE_ENVS, demo_steps=0, **fns)
     for it in range(2):
-        carry, m, n_launch, *_ = timed_train_step(train_step_late, carry)
+        carry, m, n_launch = counted_train_step(train_step_late, carry)
         check(n_launch == host_launches(it * RECIPE_STEPS_PER_ITER,
                                         RECIPE_STEPS_PER_ITER),
               "host launches, late step")
@@ -995,50 +943,17 @@ def learner_phase(assets, env, state, act, card) -> dict:
     check(max(late_counts) == 2 * RECIPE_STEPS_PER_ITER,
           f"kernel runs {late_counts}, late step")
     check(host == 0, "host launches, late steps that replay")
-
-    # where the device's time goes in one train step
-    with tempfile.TemporaryDirectory() as tmp:
-        prof = profile_steps(
-            lambda c, _a, _g: types.SimpleNamespace(
-                state=train_step_late(assets, c)[0]),
-            carry, None, None, 1, os.path.join(tmp, "train_step.json"))
     carry = None
-    log(f"[learner] one traced train step: window {prof['window_s'] * 1e3:.1f} ms, "
-        f"device busy {prof['device_busy_s'] * 1e3:.1f} ms, idle share "
-        f"{prof['device_idle_share']:.3f}, "
-        f"{prof['kernel_launches_per_step']:.0f} kernel launches; top: "
-        + "; ".join(f"{n[:40]} {ms:.2f} ms x{c}"
-                    for n, ms, c in prof["top_kernels_ms_per_step"][:4])
-        + f" [{card}]")
-
-    learn = rows[1:]                           # the steps that update
-    mean = [sum(r[i] for r in learn) / len(learn) for i in range(4)]
-    updates_per_s = RECIPE_UPDATES_PER_ITER / (mean[0] * 1e-3)
-    env_steps_per_s = RECIPE_ENVS * RECIPE_STEPS_PER_ITER / (mean[0] * 1e-3)
-    log(f"[learner] recipe train step, mean of steps 2-6: {mean[0]:.1f} ms "
-        f"({mean[3]:.1f} ms wall) = env steps {mean[1]:.1f} "
-        f"({mean[1] / RECIPE_STEPS_PER_ITER:.2f} per env step) + updates "
-        f"{mean[2]:.1f} ({mean[2] / RECIPE_UPDATES_PER_ITER:.3f} per update): "
-        f"{updates_per_s:.1f} updates/s, {env_steps_per_s:.1f} env-steps/s; "
-        f"warmup step {rows[0][0]:.1f} ms [{card}]")
     result["recipe_train_step"] = dict(
         num_envs=RECIPE_ENVS, buffer_capacity=RECIPE_CAPACITY,
         frames_gb=frames_gb, batch_size=RECIPE_BATCH,
         steps_per_iter=RECIPE_STEPS_PER_ITER,
         updates_per_iter=RECIPE_UPDATES_PER_ITER,
-        ms=mean[0], env_ms=mean[1], updates_ms=mean[2], wall_ms=mean[3],
-        warmup_ms=rows[0][0], updates_per_s=updates_per_s,
-        env_steps_per_s=env_steps_per_s,
         rasterizer_runs_per_train_step=max(late_counts),
-        traced_step=dict(window_ms=prof["window_s"] * 1e3,
-                         device_busy_ms=prof["device_busy_s"] * 1e3,
-                         device_idle_share=prof["device_idle_share"],
-                         kernel_launches=prof["kernel_launches_per_step"]),
         last_metrics=m)
 
     # default SAC (SB3's settings but the batch), fresh weights, no demo
     agent2 = SAC(SACConfig(batch_size=RECIPE_BATCH))
-    mark_first_update(agent2)
     init2, train2 = make_offpolicy_train_fns(
         EnvConfig(), agent2, RECIPE_ENVS,
         buffer_capacity=agent2.cfg.buffer_size // RECIPE_ENVS,
@@ -1048,10 +963,8 @@ def learner_phase(assets, env, state, act, card) -> dict:
     st2 = agent2.state
     actor0 = {n: v.detach().clone() for n, v in st2.actor.state_dict().items()}
     for it in range(3):
-        carry2, m2, n_launch, total, env_ms, upd_ms, wall = timed_train_step(
-            train2, carry2)
-        log(f"[learner] default SAC train step {it + 1}: {total:.1f} ms = env "
-            f"steps {env_ms:.1f} + updates {upd_ms:.1f}; rasterizer host "
+        carry2, m2, n_launch = counted_train_step(train2, carry2)
+        log(f"[learner] default SAC train step {it + 1}: rasterizer host "
             f"launches {n_launch}; " + ", ".join(f"{k} {v:.4g}"
                                                 for k, v in m2.items())
             + f" [{card}]")
@@ -1064,8 +977,7 @@ def learner_phase(assets, env, state, act, card) -> dict:
           "default SAC: alpha did not move")
     check(agent2.export_state()["actor_opt"]["step"] == 2 * RECIPE_UPDATES_PER_ITER,
           "default SAC: actor optimizer steps")
-    result["default_sac_train_step"] = dict(ms=total, env_ms=env_ms,
-                                            updates_ms=upd_ms, last_metrics=m2)
+    result["default_sac_train_step"] = dict(last_metrics=m2)
     carry2 = None
 
     # ---- c. the evaluator -----------------------------------------------
@@ -1077,13 +989,9 @@ def learner_phase(assets, env, state, act, card) -> dict:
         reset_fn, step_fn, lambda actor, obs: torch.tanh(actor(obs)[0]), 3,
         scale_action, max_steps=EVAL_STEPS, cases=cases, n_cases=n_cases)
     g = torch.Generator(device="cuda").manual_seed(RECIPE_SEED)
-    torch.cuda.synchronize()
     rc.render_obs_cuda.launches = 0
-    t0 = time.perf_counter()
     metrics = {k: float(v) for k, v in
                evaluate(g, EVAL_EPISODES, actor32).items()}
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
     n_host = rc.render_obs_cuda.launches
     # the same evaluation again, traced: its steps all replay
 
@@ -1096,8 +1004,7 @@ def learner_phase(assets, env, state, act, card) -> dict:
     n_launch = max(eval_counts)
     nine = {k: v for k, v in metrics.items() if "_case_" not in k}
     log(f"[learner] evaluator: deliverable actor (f32), {EVAL_EPISODES} "
-        f"validation episodes x {EVAL_STEPS} steps in {eval_s:.2f} s "
-        f"({eval_s / EVAL_STEPS * 1e3:.2f} ms per step), rasterizer host "
+        f"validation episodes x {EVAL_STEPS} steps, rasterizer host "
         f"launches {n_host} (the reset, the eager step, the capture); the "
         f"evaluation again, traced: kernel runs {eval_counts} (1 at the reset "
         f"+ 1 per step), host launches {eval_host}, metrics "
@@ -1120,7 +1027,6 @@ def learner_phase(assets, env, state, act, card) -> dict:
     check(eval_host == len(eval_counts), f"{eval_host} host launches in "
           f"{len(eval_counts)} evaluations that replay")
     result["evaluator"] = dict(episodes=EVAL_EPISODES, steps=EVAL_STEPS,
-                               ms_per_step=eval_s / EVAL_STEPS * 1e3,
                                rasterizer_runs=n_launch,
                                rasterizer_host_launches=n_host,
                                metrics=metrics)
@@ -1331,12 +1237,11 @@ def npc_gaps_check(assets, state, act, card) -> dict:
                 bytes_bound_ms=b_ms, operations_bound_ms=o_ms)
 
 
-def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
+def npc_phase(assets, act, card, prep_of) -> dict:
     """Phase 4: the GRU NPC policy on the card. (a) The shipped weights
     on the 4096-env policy-mode batch after 8 steps, card against CPU.
-    (b) The policy-mode main path at full width: 32 timed steps, then 4
+    (b) The policy-mode main path at full width: 32 traced steps, then 4
     with ``with_final_obs``."""
-    from torchdriveenv_tpu_torch.bench import phase_ms
     from torchdriveenv_tpu_torch.config import EnvConfig
     from torchdriveenv_tpu_torch.env.batched import BatchedEnv
     from torchdriveenv_tpu_torch.maps.arrays import load_assets
@@ -1398,31 +1303,19 @@ def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
     del feats, feats_c, act_g, h_g, act_c, h_c, act_s, h_s, cpu
 
     # ---- b. the policy-mode main path ---------------------------------
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        out = env.step(state, act)
-        state = out.state
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    steps_per_s = N_ENVS * TIMED_STEPS / elapsed
-
     def traced():
         nonlocal state
-        for _ in range(TIMED_STEPS):
+        for _ in range(TRACED_STEPS):
             o = env.step(state, act)
             state = o.state
         return o
 
-    out, counts, host = trace_runs(traced, TIMED_STEPS)
+    out, counts, host = trace_runs(traced, TRACED_STEPS)
     launches = max(counts)
-    log(f"[npc] policy-mode main path: {TIMED_STEPS} steps x {N_ENVS} envs "
-        f"in {elapsed:.3f} s: {steps_per_s:.1f} env-steps/s "
-        f"({steps_per_s / route_steps_per_s:.3f} of route mode's "
-        f"{route_steps_per_s:.1f} in [main]); in traces of {TIMED_STEPS} "
-        f"more steps, rasterizer kernel runs {counts}, host launches {host} "
-        f"[{card}]")
-    check(launches == TIMED_STEPS, f"{counts} kernel runs in {TIMED_STEPS} "
+    log(f"[npc] policy-mode main path: {N_ENVS} envs, in traces of "
+        f"{TRACED_STEPS} steps, rasterizer kernel runs {counts}, host "
+        f"launches {host} [{card}]")
+    check(launches == TRACED_STEPS, f"{counts} kernel runs in {TRACED_STEPS} "
           "policy-mode steps")
     check(host == 0, f"{host} host launches in steps that replay their "
           "graphs")
@@ -1445,17 +1338,14 @@ def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
         f"{int((running[:, None] & npc).sum())} present NPCs of running envs, "
         f"zero in the {int((~running).sum())} envs restarted this step; "
         f"mean |h| {float(hidden.abs().mean()):.4f}")
-    _, npc_counts, npc_host = trace_runs(traced, TIMED_STEPS,
+    _, npc_counts, npc_host = trace_runs(traced, TRACED_STEPS,
                                          runs=npc_gaps_runs)
-    log(f"[npc] policy-mode main path: in traces of {TIMED_STEPS} more "
+    log(f"[npc] policy-mode main path: in traces of {TRACED_STEPS} more "
         f"steps, NPC kernel runs {npc_counts}, host launches {npc_host}")
-    check(max(npc_counts) == TIMED_STEPS, f"{npc_counts} NPC kernel runs in "
-          f"{TIMED_STEPS} policy-mode steps")
+    check(max(npc_counts) == TRACED_STEPS, f"{npc_counts} NPC kernel runs in "
+          f"{TRACED_STEPS} policy-mode steps")
     check(npc_host == 0, f"{npc_host} NPC kernel host launches in steps that "
           "replay their graphs")
-    phases = phase_ms(cfg, assets, state, env.generator)
-    log("[npc] phase ms per step: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()) + f" [{card}]")
     out, where = synchronizing_calls(lambda: env.step(state, act))
     log(f"[npc] one policy-mode step with synchronizing calls reported: "
         f"{sum(where.values())}: {where}")
@@ -1486,10 +1376,8 @@ def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
           "policy mode with_final_obs")
     check(f_host == 4 and host == 0,
           f"host launches {f_host}, {host} with with_final_obs")
-    result.update(env_steps_per_s=steps_per_s, timed_steps=TIMED_STEPS,
-                  num_envs=N_ENVS, rasterizer_runs=launches,
-                  npc_gaps_runs=max(npc_counts),
-                  route_env_steps_per_s=route_steps_per_s, phases_ms=phases,
+    result.update(traced_steps=TRACED_STEPS, num_envs=N_ENVS,
+                  rasterizer_runs=launches, npc_gaps_runs=max(npc_counts),
                   synchronizing_calls_in_a_step=where,
                   with_final_obs_runs=f_launches)
     return result
@@ -1497,10 +1385,10 @@ def npc_phase(assets, act, card, prep_of, route_steps_per_s) -> dict:
 
 def gym_phase(assets, state, card, have) -> dict:
     """Phase 5: ``render_egocentric`` (the SDF-grid birdview) on the
-    card against the CPU on the main path's 4096-env state, its 64-pixel and
-    1024-pixel times, the time of the adapter's step at B = 1; then, where
-    gymnasium imports, one validation episode of ``torchdriveenv-torch-v0``
-    with video and one without."""
+    card against the CPU on the main path's 4096-env state, and a 1024-pixel
+    frame; the calls of the adapter's step at B = 1; then, where gymnasium
+    imports, one validation episode of ``torchdriveenv-torch-v0`` with video
+    and one without."""
     import numpy as np
 
     from torchdriveenv_tpu_torch.config import EnvConfig
@@ -1528,38 +1416,29 @@ def gym_phase(assets, state, card, have) -> dict:
             for i in range(0, N_ENVS, 512)])
         bad = (card_frames.cpu() != cpu_frames).any(dim=1)
         share = float(bad.float().mean())
-        ms_64 = cuda_ms(lambda: render_egocentric(
-            assets.maps, *args_of(assets, state)), 5)
         one = state.take(torch.zeros(1, dtype=torch.long, device="cuda"))
         frame = render_egocentric(assets.maps, *args_of(assets, one),
                                   res=1024, fov=500.0)
-        ms_1024 = cuda_ms(lambda: render_egocentric(
-            assets.maps, *args_of(assets, one), res=1024, fov=500.0), 5)
     log(f"[gym] render_egocentric at 64 px / 70 m on {N_ENVS} envs, card "
         f"against CPU: {int(bad.sum())} of {bad.numel()} pixels differ "
-        f"(share {share:.3e}, limit 1e-3); {ms_64:.3f} ms per {N_ENVS}-env "
-        f"render on the card; one 1024 px / 500 m frame {ms_1024:.3f} ms "
-        f"[{card}]")
+        f"(share {share:.3e}, limit 1e-3) [{card}]")
     check(card_frames.shape == (N_ENVS, 3, 64, 64)
           and frame.shape == (1, 3, 1024, 1024), "frame shapes")
     check(share <= 1e-3, f"render_egocentric card against CPU: {share}")
-    result = dict(mismatched_pixel_share=share, mismatched_pixels=int(bad.sum()),
-                  render_64_ms_4096_envs=ms_64, render_1024_ms=ms_1024)
+    result = dict(mismatched_pixel_share=share,
+                  mismatched_pixels=int(bad.sum()))
     del card_frames, cpu_frames, cpu, cpu_state
 
     # the calls TorchGymEnv.step makes at B = 1 (core.step, the 64 px obs,
-    # the host reads; with video also the 1024 px frame), timed without
+    # the host reads; with video also the 1024 px frame), without
     # gymnasium, which the GPU machine may lack
     val = load_assets("val")
     st0 = core.reset(EnvConfig(), val, 1,
                      torch.Generator(device="cuda").manual_seed(7))
     a1 = torch.tensor([[0.3, 0.0]], device="cuda")
-
-    def adapter_ms_per_step(n, video):
+    for video in (False, True):
         st = st0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
+        for _ in range(100):
             st, r, term, trunc, info = core.step(EnvConfig(), val, st, a1)
             render_egocentric(val.maps, *args_of(val, st))[0].cpu().numpy()
             if video:
@@ -1568,16 +1447,9 @@ def gym_phase(assets, state, card, have) -> dict:
             host = (float(r[0]), bool(term[0]), bool(trunc[0]),
                     {k: v[0].cpu().numpy() for k, v in info.items()})
         check(math.isfinite(host[0]), "the adapter's reward")
-        return (time.perf_counter() - t0) / n * 1e3
-
-    adapter_ms_per_step(5, True)                            # warm-up
-    plain_ms, video_ms = adapter_ms_per_step(100, False), \
-        adapter_ms_per_step(100, True)
-    log(f"[gym] the adapter's step at B = 1 on the card (core.step, the "
-        f"64 px obs, the host reads), 100 steps: {plain_ms:.2f} ms per "
-        f"step; with the 1024 px / 500 m video frame: {video_ms:.2f} ms "
-        f"[{card}]")
-    result.update(adapter_step_ms=plain_ms, adapter_step_with_video_ms=video_ms)
+    log("[gym] the adapter's step at B = 1 on the card (core.step, the 64 px "
+        "obs, the host reads), 100 steps, then 100 with the 1024 px / 500 m "
+        "video frame: rewards finite")
 
     if not have["gymnasium"]:
         log("[gym] gymnasium does not import here: no Gym episode")
@@ -1591,30 +1463,27 @@ def gym_phase(assets, state, card, have) -> dict:
             "data": "val"})
         obs, _ = env.reset(seed=7)
         steps, done = 0, False
-        t0 = time.perf_counter()
         while not done:
             obs, r, term, trunc, info = env.step(np.array([0.3, 0.0],
                                                           np.float32))
             steps += 1
             done = term or trunc
-        step_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         env.close()
         check(obs.shape == (3, 64, 64) and np.isfinite(r), "gym step output")
-        return steps, step_s / steps * 1e3, time.perf_counter() - t0
+        return steps
 
     with tempfile.TemporaryDirectory() as tmp:
         video = os.path.join(tmp, "episode.avi")
         rc.render_obs_cuda.launches = 0
         modes = ("video", "rgb_array") if have["PIL"] else ("rgb_array",)
         for mode in modes:
-            steps, ms, close_s = episode(mode, video)
+            steps = episode(mode, video)
             log(f"[gym] gym.make('torchdriveenv-torch-v0') {mode} episode on "
-                f"the card: {steps} steps, {ms:.2f} ms per step"
-                + (f" (a 64 px obs and a 1024 px video frame each), close "
-                   f"{close_s:.2f} s, video {os.path.getsize(video)} bytes"
+                f"the card: {steps} steps"
+                + (f" (a 64 px obs and a 1024 px video frame each), video "
+                   f"{os.path.getsize(video)} bytes"
                    if mode == "video" else "") + f" [{card}]")
-            result[f"{mode}_episode"] = dict(steps=steps, ms_per_step=ms)
+            result[f"{mode}_episode"] = dict(steps=steps)
             if mode == "video":
                 check(os.path.isfile(video) and os.path.getsize(video) > 1000,
                       "the episode's video")
@@ -1639,57 +1508,41 @@ def optional_packages() -> dict:
 @contextlib.contextmanager
 def probed_train(train_mod, rc):
     """While active, the train step that ``rl.train.train`` builds is
-    wrapped: CUDA events around every call and at its first
-    ``agent.update``, and the rasterizer's host launches per call. Nothing
-    synchronizes inside the run; the events are read afterwards. Yields a
-    namespace with ``rows`` [(start, first update, end, launches)], the
-    host clock's ``host`` [(start, end)] and the ``metrics`` of every
-    call, the plain ``train_fn``, the ``agent``, the ``assets``, the
-    agent's state right after ``init_fn`` and at the start of the first
-    train step."""
+    wrapped: the rasterizer's host launches per call are counted. Yields a
+    namespace with ``rows`` [{host_launches, host_start, host_end}] (the
+    host clock's ends tell which train step a host event fell in) and the
+    ``metrics`` of every call, the plain ``train_fn``, the ``agent``, the
+    ``assets``, the agent's state right after ``init_fn`` and at the start
+    of the first train step."""
     probe = types.SimpleNamespace(rows=[], train_fn=None, agent=None,
                                   assets=None, initial=None, first=None,
-                                  mark=None, host=[], metrics=[])
+                                  metrics=[])
     names = ("make_onpolicy_train_fns", "make_offpolicy_train_fns")
     plain = {n: getattr(train_mod, n) for n in names}
-
-    def event():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
 
     def wrap(factory):
         def wrapped(env_cfg, agent, *args, **kw):
             init_fn, train_fn = factory(env_cfg, agent, *args, **kw)
-            plain_update = agent.update
-
-            def marked_update(*a, **k):
-                if probe.mark is None:
-                    probe.mark = event()
-                return plain_update(*a, **k)
 
             def probed_init(assets, seed=0):
                 carry = init_fn(assets, seed)
                 probe.initial = agent.export_state()
                 return carry
 
-            def timed(assets, carry):
+            def counted(assets, carry):
                 if probe.first is None:
                     probe.first = agent.export_state()
-                probe.mark = None
                 n0 = rc.render_obs_cuda.launches
                 t0 = time.perf_counter()
-                e0 = event()
                 out = train_fn(assets, carry)
-                probe.rows.append((e0, probe.mark, event(),
-                                   rc.render_obs_cuda.launches - n0))
-                probe.host.append((t0, time.perf_counter()))
+                probe.rows.append(dict(
+                    host_launches=rc.render_obs_cuda.launches - n0,
+                    host_start=t0, host_end=time.perf_counter()))
                 probe.metrics.append(out[1])
                 return out
 
-            agent.update = marked_update
             probe.train_fn, probe.agent = train_fn, agent
-            return probed_init, timed
+            return probed_init, counted
         return wrapped
 
     plain_load = train_mod.load_assets
@@ -1715,10 +1568,8 @@ def train_phase(card, have) -> dict:
     """Phase 7: ``rl.train.train`` on the card for PPO (full width), A2C,
     TD3 and the stage-1 SAC recipe with the GRU NPCs, from RECIPES."""
     from torchdriveenv_tpu_torch import config as tconfig
-    from torchdriveenv_tpu_torch.bench import profile_steps
     from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
     from torchdriveenv_tpu_torch.rl import train as train_mod
-    from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
     if have["yaml"]:            # the files themselves give the same configs
         for path, raw in RECIPES.items():
@@ -1739,7 +1590,7 @@ def train_phase(card, have) -> dict:
         return tconfig.construct_rl_training_config(raw)
 
     def run(name, cfg, other_launches, **kw):
-        """One ``train`` call -> (carry, probe, per-step rows of ms and host
+        """One ``train`` call -> (carry, probe, per-step rows of host
         launches, the JSONL records). The rasterizer's host launch count is
         set to 0 just before and read just after; ``other_launches``: those
         outside the train steps."""
@@ -1751,12 +1602,7 @@ def train_phase(card, have) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = rc.render_obs_cuda.launches
-        rows = []
-        for e0, mark, e1, n in probe.rows:
-            total = e0.elapsed_time(e1)
-            roll = e0.elapsed_time(mark) if mark is not None else total
-            rows.append(dict(ms=total, rollout_ms=roll, update_ms=total - roll,
-                             host_launches=n))
+        rows = [{"host_launches": r["host_launches"]} for r in probe.rows]
         logs = sorted(f for f in os.listdir(cfg.log_dir) if f.endswith(".jsonl"))
         with open(os.path.join(cfg.log_dir, logs[-1])) as f:
             records = [json.loads(line) for line in f]
@@ -1819,13 +1665,8 @@ def train_phase(card, have) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         cfg = config_of(PPO_YML, tmp, PPO_TRAIN_STEPS * per_step)
         carry, probe, rows, records = run("PPO", cfg, eval_launches)
-        for i, r in enumerate(rows):
-            log(f"[train] PPO train step {i + 1}: {r['ms']:.1f} ms on the "
-                f"device's clock = rollout {r['rollout_ms']:.1f} "
-                f"({r['rollout_ms'] / n_steps:.2f} per env step) + update "
-                f"{r['update_ms']:.1f} ({r['update_ms'] / grad_steps:.2f} per "
-                f"gradient step); rasterizer host launches "
-                f"{r['host_launches']} [{card}]")
+        log(f"[train] PPO rasterizer host launches per train step "
+            f"{[r['host_launches'] for r in rows]} [{card}]")
         host_per_step("PPO", rows, n_steps)
         last = [r for r in records if "train/loss" in r][-1]
         log("[train] PPO last train record: "
@@ -1858,46 +1699,15 @@ def train_phase(card, have) -> dict:
             f"{os.path.getsize(full) / 1e6:.1f} MB; peak "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
 
-        # where the device's time goes in one more train step of that carry
-        prof = profile_steps(
-            lambda c, _a, _g: types.SimpleNamespace(
-                state=probe.train_fn(probe.assets, c)[0]),
-            carry, None, None, 1, os.path.join(tmp, "ppo_train_step.json"))
-        log(f"[train] one traced PPO train step: window "
-            f"{prof['window_s'] * 1e3:.1f} ms, device busy "
-            f"{prof['device_busy_s'] * 1e3:.1f} ms, idle share "
-            f"{prof['device_idle_share']:.3f}, "
-            f"{prof['kernel_launches_per_step']:.0f} kernel launches; top: "
-            + "; ".join(f"{n[:40]} {ms:.2f} ms x{c}"
-                        for n, ms, c in prof["top_kernels_ms_per_step"][:4])
-            + f" [{card}]")
-        # and one more with every synchronizing call reported: a train step
-        # must not read the device from the host, nor upload host data
+        # one more train step with every synchronizing call reported: a
+        # train step must not read the device from the host, nor upload
+        # host data
         (carry, _), where = synchronizing_calls(
             lambda: probe.train_fn(probe.assets, carry))
         log(f"[train] one PPO train step with synchronizing calls reported: "
             f"{sum(where.values())}: {where}")
         check(not where, f"PPO: synchronizing calls in a train step: {where}")
         carry, ppo_runs = traced_train_step("PPO", probe, carry, n_steps)
-
-        # the CLI's precision against torch's default, which runs cuDNN's
-        # float32 convolutions in TF32: train steps of this carry in turns
-        # (default, f32, f32, default, default, f32, f32, default)
-        ab = {"cudnn_tf32": [], "f32": []}
-        for cudnn_tf32 in (True, False, False, True) * 2:
-            set_f32_precision(cudnn_tf32=cudnn_tf32)
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            carry, _ = probe.train_fn(probe.assets, carry)
-            e1.record()
-            torch.cuda.synchronize()
-            ab["cudnn_tf32" if cudnn_tf32 else "f32"].append(
-                e0.elapsed_time(e1))
-        set_f32_precision()
-        log(f"[train] PPO train step, torch's default precision (cuDNN TF32) "
-            f"against the port's f32, in turns: {ab['cudnn_tf32']} ms "
-            f"against {ab['f32']} ms [{card}]")
         del carry, probe
 
         # resumed from full_latest: one more train step of the same run
@@ -1915,26 +1725,15 @@ def train_phase(card, have) -> dict:
         check(moved(after["net"], resumed["net"]), "PPO resumed: parameters")
         log(f"[train] PPO resumed from full_latest: env steps "
             f"{PPO_TRAIN_STEPS * per_step} -> {carry2.env_steps}, Adam count "
-            f"{resumed['opt']['step']}, train step {rows2[0]['ms']:.1f} ms")
+            f"{resumed['opt']['step']}")
         del carry2, probe2
-    steady = rows[1:]
     result["ppo_1024"] = dict(
         source=PPO_YML, num_envs=n_envs, n_steps=n_steps,
         batch_size=ppo["algo_kwargs"]["batch_size"],
         gradient_steps_per_train_step=grad_steps, rollout_frames_gb=rollout_gb,
         train_steps=rows, resumed_train_step=rows2[0],
-        mean_ms_after_first={k: sum(r[k] for r in steady) / len(steady)
-                             for k in ("ms", "rollout_ms", "update_ms")},
-        env_steps_per_s_after_first=per_step * len(steady)
-        / (sum(r["ms"] for r in steady) * 1e-3),
         rasterizer_runs_per_train_step=ppo_runs,
         synchronizing_calls_in_a_train_step=where,
-        precision_in_turns_ms=ab,
-        traced_step=dict(window_ms=prof["window_s"] * 1e3,
-                         device_busy_ms=prof["device_busy_s"] * 1e3,
-                         device_idle_share=prof["device_idle_share"],
-                         kernel_launches=prof["kernel_launches_per_step"],
-                         top_kernels=prof["top_kernels_ms_per_step"][:6]),
         last_metrics={k[6:]: v for k, v in last.items()
                       if k.startswith("train/")})
 
@@ -1982,23 +1781,18 @@ def train_phase(card, have) -> dict:
                               critic_adam=after["critic_opt"]["step"],
                               actor_adam=after["actor_opt"]["step"],
                               buffer_frames_gb=carry.buffer.frames.numel() / 1e9)
-            learn = rows[-max(depth // 2, 1):]
-            mean = {k: sum(r[k] for r in learn) / len(learn)
-                    for k in ("ms", "rollout_ms", "update_ms")}
             last = [r for r in records if any(k.startswith("train/")
                                               for k in r)][-1]
             log(f"[train] {name}: {n_envs} envs, {steps_per_iter} env steps "
                 f"per train step, {depth} train steps = {carry.env_steps} "
-                f"env steps; mean of the last {len(learn)}: {mean['ms']:.1f} "
-                f"ms = rollout {mean['rollout_ms']:.1f} + update "
-                f"{mean['update_ms']:.1f}; " + ", ".join(
+                f"env steps; " + ", ".join(
                     f"{k} {v}" for k, v in counts.items()) + "; last record: "
                 + ", ".join(f"{k[6:]} {v:.4g}" for k, v in last.items()
                             if k.startswith("train/")) + f" [{card}]")
             carry, runs = traced_train_step(name, probe, carry, steps_per_iter)
             result[name.lower()] = dict(
                 source=path, num_envs=n_envs, train_steps=depth,
-                env_steps=carry.env_steps, mean_ms_last_half=mean,
+                env_steps=carry.env_steps,
                 rasterizer_runs_per_train_step=runs, **counts)
             del carry, probe
 
@@ -2035,11 +1829,9 @@ def train_phase(card, have) -> dict:
         log(f"[train] SAC npc policy ({NPC_SAC_YML}): {n_envs} envs, ring of "
             f"{frames_gb:.2f} GB, {NPC_SAC_TRAIN_STEPS} train steps of "
             f"{spi} env steps + {upi} updates of "
-            f"{npc['algo_kwargs']['batch_size']} ("
-            + "; ".join(f"{r['ms']:.1f} ms = env {r['rollout_ms']:.1f} + "
-                        f"updates {r['update_ms']:.1f}" for r in rows)
-            + f"); {updates} updates; npc_hidden {tuple(hidden.shape)} mean "
-            f"|h| {float(hidden.abs().mean()):.4f}; last record: "
+            f"{npc['algo_kwargs']['batch_size']}; {updates} updates; "
+            f"npc_hidden {tuple(hidden.shape)} mean |h| "
+            f"{float(hidden.abs().mean()):.4f}; last record: "
             + ", ".join(f"{k[6:]} {v:.4g}" for k, v in last.items()
                         if k.startswith("train/")) + f" [{card}]")
         carry, runs = traced_train_step("SAC npc policy", probe, carry, spi)
@@ -2054,34 +1846,29 @@ def train_phase(card, have) -> dict:
 
 # ---- the [tools] phase: the deliverable workflow around training ---------
 # TRAINING.md:226-231: BC pretrain, rl.train --init_model, the checkpoint
-# sweep; then the NPC distillation, the diagnostics, the audit and the
-# profilers. The BC widths are the deliverable's own command.
+# sweep; then the NPC distillation, the diagnostics and the audit. The BC
+# widths are the deliverable's own command.
 BC_ENVS, BC_ROLLOUT_STEPS, BC_STEPS = 128, 600, 3000
 BC_BATCH, BC_INIT_ALPHA = 512, 0.05                    # bc_pretrain's defaults
 TOOLS_TRAIN_STEPS = 2
 TOOLS_EVAL_EPISODES = 25
 DISTILL_STEPS, DISTILL_BATCH = 1500, 256               # distill_npc's defaults
 DIAG_EPISODES, DIAG_MAX_STEPS = 16, 50                 # cut from the horizon, 200
-PROFILE_BATCHES = (256, 512)
-PROFILE_STEP_ENVS = 4096
 
 
 @contextlib.contextmanager
 def probed_bc(bc_mod, rc):
     """While active, ``bc_pretrain``'s two stages are wrapped as its
-    ``main`` calls them: the demo collection is timed on the host's clock
-    and its rasterizer launches counted, and the shapes, bytes and action
-    range of its pairs noted; the BC phase runs between CUDA events and
-    under ``synchronizing_calls``. Yields a namespace of those readings."""
+    ``main`` calls them: the demo collection's rasterizer launches are
+    counted, and the shapes, bytes and action range of its pairs noted;
+    the BC phase runs under ``synchronizing_calls``. Yields a namespace of
+    those readings."""
     probe = types.SimpleNamespace()
     plain = bc_mod.collect_demo_pairs, bc_mod.bc_phase
 
     def collect(*args, **kw):
-        torch.cuda.synchronize()
-        n0, t0 = rc.render_obs_cuda.launches, time.perf_counter()
+        n0 = rc.render_obs_cuda.launches
         stacks, acts = plain[0](*args, **kw)
-        torch.cuda.synchronize()
-        probe.collect_s = time.perf_counter() - t0
         probe.collect_launches = rc.render_obs_cuda.launches - n0
         probe.stacks, probe.acts = ((tuple(t.shape), t.dtype, t.device.type)
                                     for t in (stacks, acts))
@@ -2092,13 +1879,8 @@ def probed_bc(bc_mod, rc):
         return stacks, acts
 
     def phase(actor, stacks, acts, steps, *args, **kw):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
         mses, probe.syncs = synchronizing_calls(
             lambda: plain[1](actor, stacks, acts, steps, *args, **kw))
-        end.record()
-        end.synchronize()
-        probe.bc_ms = start.elapsed_time(end) / steps
         return mses
 
     bc_mod.collect_demo_pairs, bc_mod.bc_phase = collect, phase
@@ -2124,8 +1906,6 @@ def tools_phase(card) -> dict:
         diagnose_val,
         distill_npc,
         eval_checkpoints,
-        profile_learner,
-        profile_step,
     )
 
     result, launched = {}, {}
@@ -2136,7 +1916,6 @@ def tools_phase(card) -> dict:
         cfg = EnvConfig()
         bc_path = os.path.join(tmp, "bc_init")
         with probed_bc(bc_pretrain, rc) as probe:
-            torch.cuda.synchronize()
             rc.render_obs_cuda.launches = 0
             res = bc_pretrain.main([
                 "--envs", str(BC_ENVS), "--rollout_steps",
@@ -2160,11 +1939,9 @@ def tools_phase(card) -> dict:
               f"{probe.syncs}")
         log(f"[tools] bc_pretrain.main collection: {BC_ENVS} envs x "
             f"{BC_ROLLOUT_STEPS} steps = {n_pairs} pairs "
-            f"({probe.pairs_gb:.2f} GB on the card) in {probe.collect_s:.1f} "
-            f"s ({probe.collect_s / BC_ROLLOUT_STEPS * 1e3:.1f} ms per env "
-            f"step); rasterizer host launches {launched['bc_pretrain']} in "
-            f"the whole command (the reset, the eager step, the capture) "
-            f"[{card}]")
+            f"({probe.pairs_gb:.2f} GB on the card); rasterizer host "
+            f"launches {launched['bc_pretrain']} in the whole command (the "
+            f"reset, the eager step, the capture) [{card}]")
         mses = res["mses"]
         mse_first, mse_last = float(mses[0]), float(mses[-100:].mean())
         check(mses.shape == (BC_STEPS,) and bool(torch.isfinite(mses).all())
@@ -2176,16 +1953,13 @@ def tools_phase(card) -> dict:
             "BC checkpoint: actor Adam count or log_alpha")
         log(f"[tools] bc_pretrain.main BC {BC_STEPS} steps of {BC_BATCH}: "
             f"action-MSE {mse_first:.4f} -> {mse_last:.4f} (mean of the "
-            f"last 100); {probe.bc_ms:.3f} ms per step on the device's clock "
-            f"(the phase's CUDA events / {BC_STEPS}); synchronizing calls in "
-            f"the {BC_STEPS} steps: 0 [{card}]")
+            f"last 100); synchronizing calls in the {BC_STEPS} steps: 0 "
+            f"[{card}]")
         result["bc"] = dict(
             envs=BC_ENVS, rollout_steps=BC_ROLLOUT_STEPS, bc_steps=BC_STEPS,
             batch=BC_BATCH, pairs=n_pairs, pairs_gb=probe.pairs_gb,
-            collection_s=probe.collect_s,
-            collection_ms_per_env_step=probe.collect_s / BC_ROLLOUT_STEPS
-            * 1e3, bc_ms_per_step=probe.bc_ms, mse_first=mse_first,
-            mse_last100_mean=mse_last, synchronizing_calls_per_step=0)
+            mse_first=mse_first, mse_last100_mean=mse_last,
+            synchronizing_calls_per_step=0)
         del res, mses, probe
 
         # ---- 2. rl.train --init_model from the stage-1 recipe -----------
@@ -2207,8 +1981,7 @@ def tools_phase(card) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched["init_model_train"] = rc.render_obs_cuda.launches
-        rows = [dict(ms=e0.elapsed_time(e1), host_launches=n)
-                for e0, _, e1, n in probe.rows]
+        rows = [{"host_launches": r["host_launches"]} for r in probe.rows]
         check(len(rows) == TOOLS_TRAIN_STEPS
               and carry.env_steps == TOOLS_TRAIN_STEPS * per_step,
               "init_model run: depth")
@@ -2232,9 +2005,8 @@ def tools_phase(card) -> dict:
                          for i in range(TOOLS_TRAIN_STEPS)],
               f"init_model run: checkpoints {models}")
         log(f"[tools] rl.train --init_model ({SAC_YML}): {TOOLS_TRAIN_STEPS} "
-            f"train steps (" + "; ".join(f"{r['ms']:.1f} ms"
-                                         for r in rows)
-            + f"), {updates} updates, {wall:.1f} s wall with one evaluation; "
+            f"train steps, {updates} updates, {wall:.1f} s wall with one "
+            f"evaluation; "
             f"the starting actor is BC's, Adam count 0; wrote {models} "
             f"[{card}]")
         result["init_model_train"] = dict(
@@ -2397,196 +2169,7 @@ def tools_phase(card) -> dict:
                                violations=sum(r["violations"]
                                               for r in on_card),
                                worst_float_vs_cpu=worst)
-
-        # ---- 7. the profilers -------------------------------------------
-        learner = profile_learner.main(
-            ["--batches"] + [str(b) for b in PROFILE_BATCHES]
-            + ["--out", os.path.join(tmp, "learner.json")])
-        for b in PROFILE_BATCHES:
-            row = learner["update_sweep"][b]
-            check(row["launches"] > 0 and row["flops"] > 0,
-                  f"profile_learner b={b}: {row}")
-            log(f"[tools] profile_learner update b={b}: {row['ms']:.2f} ms, "
-                f"{row['launches']} launches, {row['flops'] / 1e9:.1f} GFLOP "
-                f"({row['tensor_share_of_bf16_peak']:.4f} of the bf16 peak), "
-                f"{row['min_bytes'] / 1e6:.1f} MB at least "
-                f"({row['hbm_share_of_peak']:.4f} of HBM's); sample "
-                f"{learner['sample_sweep'][b]['ms']:.2f} ms, "
-                f"{learner['sample_sweep'][b]['launches']} launches [{card}]")
-        for k in ("learn_phase", "rollout_phase", "fused_train_step"):
-            check(learner[k]["launches"] > 0, f"profile_learner {k}")
-            log(f"[tools] profile_learner {k}: {learner[k]['ms']:.1f} ms, "
-                f"{learner[k]['launches']} launches [{card}]")
-        step_rep = profile_step.main(["--num_envs", str(PROFILE_STEP_ENVS)])
-        check(all(v > 0 for v in step_rep["ms"].values()), "profile_step")
-        result["profile_learner"] = learner
-        result["profile_step"] = step_rep
     return result
-
-
-# ---- the [bench] phase: the bench's --breakdown and --mesh modes ----------
-BENCH_ENVS = 4096
-BENCH_SEED = 0
-BENCH_BREAKDOWN_RUN = dict(chunk=16, iters=3)
-BENCH_MESH_RUN = dict(chunk=8, iters=2)
-# the ranks of --mesh: one under nccl with torchrun's variables (the bench
-# sets its group up), two under gloo sharing the card (the worker sets the
-# group up, and the bench takes it as it finds it)
-BENCH_MESH_CASES = {"bench1": 1, "bench2": 2}
-BENCH_REWARD_RTOL = 1e-5
-
-
-def _bench_argv(run: dict, *extra) -> list:
-    return ["--num_envs", str(BENCH_ENVS), "--seed", str(BENCH_SEED),
-            "--chunk", str(run["chunk"]), "--iters", str(run["iters"]),
-            *extra]
-
-
-def _bench_steps(run: dict) -> int:
-    """Env steps of a bench run: the warm-up chunk and the timed ones."""
-    return run["chunk"] * (run["iters"] + 1)
-
-
-def _bench_worker(pm, case: str, out_dir: str) -> dict:
-    """A rank of ``bench --mesh`` (``--multi-worker bench1|bench2``): the
-    bench's main, traced for the kernel's runs (``rasterizer_runs``).
-    bench2's rank 0 also writes the breakdown of its own rows."""
-    from torchdriveenv_tpu_torch import bench
-    argv = _bench_argv(BENCH_MESH_RUN, "--mesh")
-    if BENCH_MESH_CASES[case] > 1:
-        # nccl refuses two ranks on one card
-        check(pm.maybe_init_distributed(backend="gloo",
-                                        timeout_s=MULTI_TIMEOUT_S),
-              "the gloo group did not come up")
-        argv += ["--breakdown", os.path.join(out_dir,
-                                             f"{case}_breakdown.json")]
-    with rasterizer_runs() as raster:
-        record = bench.main(argv)
-    # at least this many runs: the trace can lose records, and every host
-    # launch runs the kernel (a capture's by the replay that follows it)
-    return dict(record=record, launches=max(raster.runs, raster.host))
-
-
-def _bench_main(bench, argv: list) -> dict:
-    """The bench's main in this process, its line logged under [bench]
-    (no bare JSON line of its own in this script's output)."""
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        record = bench.main(argv)
-    for line in out.getvalue().splitlines():
-        log(f"[bench] line: {line}")
-    return record
-
-
-def _check_breakdown(bd: dict, label: str, card: str) -> dict:
-    """Log a breakdown file's shares and fail on a share outside (0, 1], a
-    least step time over the measured one, or a least render time over
-    the kernel's measured time."""
-    r = bd["roofline"]
-    shares = dict(f32=r["flops_utilization_vs_f32_peak"],
-                  hbm=r["hbm_bw_utilization"])
-    render_least = r["phases_least_ms"]["render"]
-    log(f"[bench] {label}: {bd['num_envs']} envs, "
-        f"{bd['fused_per_step_ms']:.3f} ms a step against a least "
-        f"{r['least_ms_per_step']:.4f} ms (by {r['bound_by']}): share of "
-        f"the f32 peak {shares['f32']:.3e}, of the HBM rate "
-        f"{shares['hbm']:.3e}; phases ms "
-        + ", ".join(f"{k} {v:.3f}" for k, v in bd["phases_ms_per_step"].items())
-        + ", least ms "
-        + ", ".join(f"{k} {v:.4f}" for k, v in r["phases_least_ms"].items())
-        + f"; the kernel {bd['render_kernel_ms']:.4f} ms; envs done a step "
-        f"{bd['done_share_per_step']:.5f} [{card}]")
-    check(all(0.0 < x <= 1.0 for x in shares.values()),
-          f"[bench] {label}: a share outside (0, 1]: {shares}")
-    check(r["least_ms_per_step"] <= bd["fused_per_step_ms"],
-          f"[bench] {label}: least step time {r['least_ms_per_step']} ms "
-          f"over the measured {bd['fused_per_step_ms']} ms")
-    check(render_least <= bd["render_kernel_ms"],
-          f"[bench] {label}: the render's least time {render_least} ms over "
-          f"the kernel's {bd['render_kernel_ms']} ms")
-    return dict(shares, least_ms_per_step=r["least_ms_per_step"],
-                fused_per_step_ms=bd["fused_per_step_ms"],
-                bound_by=r["bound_by"], render_least_ms=render_least,
-                render_kernel_ms=bd["render_kernel_ms"])
-
-
-def bench_phase(card) -> dict:
-    """Phase 3a: the bench's entry point (torchdriveenv_tpu_torch/bench.py)
-    in its two modes. ``--breakdown`` at 4096 route-mode envs; ``--mesh``
-    under one nccl rank and under two gloo ranks sharing the card, each
-    against one process with the same seed and steps: the frames' checksum
-    summed over the ranks exact, the rewards' within rtol 1e-5."""
-    from torchdriveenv_tpu_torch import bench
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "breakdown.json")
-        with rasterizer_runs() as raster:
-            line = _bench_main(bench, _bench_argv(BENCH_BREAKDOWN_RUN,
-                                                  "--breakdown", path))
-        launches = max(raster.runs, raster.host)      # as _bench_worker
-        with open(path) as f:
-            bd = json.load(f)
-        steps = _bench_steps(BENCH_BREAKDOWN_RUN)
-        log(f"[bench] --breakdown: {line['value']:.1f} env-steps/s (median "
-            f"{line['median']:.1f}), rasterizer kernel runs {launches} "
-            f"({steps} steps; the run traced) [{card}]")
-        check(launches >= steps, f"[bench] the kernel ran {launches} "
-              f"times in {steps} steps")
-        out = dict(breakdown=bd, breakdown_shares=_check_breakdown(
-            bd, "--breakdown", card), breakdown_launches=launches,
-            breakdown_line=line)
-
-        one = _bench_main(bench, _bench_argv(BENCH_MESH_RUN))
-        out["one_process"] = one
-        for case, world in BENCH_MESH_CASES.items():
-            run_ranks("bench", case, world, tmp)
-            ranks = []
-            for r in range(world):
-                with open(os.path.join(tmp, f"{case}_rank{r}.json")) as f:
-                    ranks.append(json.load(f))
-            rec = ranks[0]["record"]
-            rank_launches = [x["launches"] for x in ranks]
-            reward_err = (abs(rec["reward_checksum"] - one["reward_checksum"])
-                          / abs(one["reward_checksum"]))
-            log(f"[bench] --mesh {case}: world {rec['world']} "
-                f"({rec['backend']}), {rec['value']:.1f} env-steps/s over "
-                f"the ranks ({rec['value_per_rank']:.1f} a rank; one process "
-                f"{one['value']:.1f}), chunk s by rank "
-                f"{rec['chunk_times_s_by_rank']}; obs checksum "
-                f"{rec['obs_checksum']} against {one['obs_checksum']}, reward "
-                f"{rec['reward_checksum']!r} against "
-                f"{one['reward_checksum']!r} (relative {reward_err:.2e}); "
-                f"rasterizer kernel runs by rank {rank_launches} [{card}]")
-            check(rec["world"] == world and rec["backend"] == (
-                "nccl" if world == 1 else "gloo"),
-                f"[bench] {case} ran as world {rec['world']} "
-                f"{rec['backend']}")
-            check(rec["obs_checksum"] == one["obs_checksum"],
-                  f"[bench] {case}: the summed obs checksum differs from "
-                  "one process's")
-            check(reward_err <= BENCH_REWARD_RTOL,
-                  f"[bench] {case}: the reward checksum is {reward_err:.2e} "
-                  "off one process's")
-            check(all(n >= _bench_steps(BENCH_MESH_RUN)
-                      for n in rank_launches),
-                  f"[bench] {case}: rasterizer kernel runs by rank "
-                  f"{rank_launches}")
-            out[case] = dict(record=rec, launches=rank_launches,
-                             reward_rel_err=reward_err)
-            if world > 1:
-                with open(os.path.join(tmp, f"{case}_breakdown.json")) as f:
-                    mbd = json.load(f)
-                out[case]["breakdown_shares"] = _check_breakdown(
-                    mbd, f"--mesh {case} --breakdown (rank 0's rows)", card)
-                check(mbd["rows"] == dict(
-                    rank=0, world=world, lo=0, hi=BENCH_ENVS // world,
-                    global_envs=BENCH_ENVS),
-                    f"[bench] {case}: the breakdown's rows {mbd['rows']}")
-                out[case]["breakdown_rows"] = mbd["rows"]
-    out["wall_s"] = time.perf_counter() - t0
-    log(f"[bench] phase {out['wall_s']:.1f} s")
-    return out
 
 
 # ---- the [multi] phase: data parallelism over torch.distributed ----------
@@ -2659,15 +2242,11 @@ def _count_collectives():
     return counts
 
 
-def _timed_train_steps(step_fn, assets, carry, n, dev):
-    ms = []
+def _train_steps(step_fn, assets, carry, n):
+    """``n`` train steps -> (carry, the last one's metrics as floats)."""
     for _ in range(n):
-        _sync(dev)
-        t0 = time.perf_counter()
         carry, m = step_fn(assets, carry)
-        _sync(dev)
-        ms.append((time.perf_counter() - t0) * 1e3)
-    return carry, {k: float(v) for k, v in m.items()}, ms
+    return carry, {k: float(v) for k, v in m.items()}
 
 
 def _w1_sac(mesh, assets, dev):
@@ -2685,8 +2264,8 @@ def _w1_sac(mesh, assets, dev):
         demo_fn=make_scripted_driver(cfg, assets), demo_steps=RECIPE_DEMO_STEPS,
         demo_envs=RECIPE_DEMO_ENVS, device=dev, mesh=mesh)
     carry = init_fn(assets, RECIPE_SEED)
-    carry, metrics, ms = _timed_train_steps(step_fn, assets, carry, 2, dev)
-    return agent.export_state(), metrics, ms, carry
+    carry, metrics = _train_steps(step_fn, assets, carry, 2)
+    return agent.export_state(), metrics, carry
 
 
 def _w1_ppo(mesh, assets, dev):
@@ -2698,8 +2277,8 @@ def _w1_ppo(mesh, assets, dev):
     init_fn, step_fn = make_onpolicy_train_fns(cfg, agent, W1_PPO_ENVS,
                                                device=dev, mesh=mesh)
     carry = init_fn(assets, 0)
-    carry, metrics, ms = _timed_train_steps(step_fn, assets, carry, 1, dev)
-    return agent.export_state(), metrics, ms, carry
+    carry, metrics = _train_steps(step_fn, assets, carry, 1)
+    return agent.export_state(), metrics, carry
 
 
 def _multi_world1(pm, dev) -> dict:
@@ -2722,30 +2301,25 @@ def _multi_world1(pm, dev) -> dict:
     for name, fn, n in steps:
         mesh = pm.make_mesh(n)
         assert mesh is None, f"a one-rank group made {mesh}"
-        state, metrics, ms, _ = fn(mesh, assets, dev)
-        r_state, r_metrics, r_ms, _ = ref[name]
-        out[name] = dict(adam_close(state, r_state), ms=ms, ref_ms=r_ms,
-                         metrics_equal=metrics == r_metrics,
-                         ms_diff=[a - b for a, b in zip(ms, r_ms)])
+        state, metrics, _ = fn(mesh, assets, dev)
+        r_state, r_metrics, _ = ref[name]
+        out[name] = dict(adam_close(state, r_state),
+                         metrics_equal=metrics == r_metrics)
         log(f"[multi world1] {name}: world {out['world']} ({out['backend']}) "
             f"against no process group: bit-equal {out[name]['bit_equal']}, "
             f"within the Adam tolerance {out[name]['ok']}, metrics equal "
-            f"{out[name]['metrics_equal']}; train step ms {ms} against "
-            f"{r_ms}")
+            f"{out[name]['metrics_equal']}")
     out["collectives"] = dict(counts)
     return out
 
 
-def _gathered_rollout(env, state, act, steps, pm, mesh, dev):
-    """``steps`` env steps (timed; the rasterizer's host launches counted
-    from 0: under a mesh the step is eager, so they are the kernel's runs);
-    then the per-step frames, done flags and agent states gathered over the
-    mesh."""
+def _gathered_rollout(env, state, act, steps, pm, mesh):
+    """``steps`` env steps (the rasterizer's host launches counted from 0:
+    under a mesh the step is eager, so they are the kernel's runs); then the
+    per-step frames, done flags and agent states gathered over the mesh."""
     from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
     rows = []
-    _sync(dev)
     rc.render_obs_cuda.launches = 0
-    t0 = time.perf_counter()
     for _ in range(steps):
         out = env.step(state, act)
         state = out.state
@@ -2753,11 +2327,9 @@ def _gathered_rollout(env, state, act, steps, pm, mesh, dev):
                          truncated=out.truncated,
                          agent_states=state.agent_states,
                          step_idx=state.step_idx, case=state.case))
-    _sync(dev)
-    ms = (time.perf_counter() - t0) * 1e3 / steps
     launches = rc.render_obs_cuda.launches
     return ([{k: pm.gather_rows(v, mesh) for k, v in r.items()}
-             for r in rows], ms, launches)
+             for r in rows], launches)
 
 
 def _compare_rows(got, want) -> dict:
@@ -2803,16 +2375,16 @@ def _small_learner(kind, mesh, assets, dev, n_envs):
 
 
 def _small_train_step(kind, mesh, assets, dev, n_envs):
-    """One timed small train step -> (agent state after it, metrics, ms,
-    and the synchronizing calls of one more step by source line, or None
-    off the card)."""
+    """One small train step -> (agent state after it, metrics, and the
+    synchronizing calls of one more step by source line, or None off the
+    card)."""
     agent, carry, step_fn = _small_learner(kind, mesh, assets, dev, n_envs)
-    carry, metrics, ms = _timed_train_steps(step_fn, assets, carry, 1, dev)
+    carry, metrics = _train_steps(step_fn, assets, carry, 1)
     state = copy.deepcopy(agent.export_state())
     syncs = None
     if torch.device(dev).type == "cuda":
         _, syncs = synchronizing_calls(lambda: step_fn(assets, carry))
-    return state, metrics, ms, syncs
+    return state, metrics, syncs
 
 
 def _split_grad_witness(assets, dev, n_envs) -> dict:
@@ -2906,8 +2478,7 @@ def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
     env = BatchedEnv(cfg, assets, n_envs, device=dev, seed=0, mesh=mesh)
     state, _ = env.reset()
     act = torch.tensor([[0.3, 0.02]], device=dev).repeat(mesh.local_envs, 1)
-    got, ms, launches = _gathered_rollout(env, state, act, steps, pm, mesh, dev)
-    out["rollout_ms_per_step"] = per_rank(ms)
+    got, launches = _gathered_rollout(env, state, act, steps, pm, mesh)
     out["launches"] = [int(x) for x in per_rank(launches)]
     out["done"] = int(sum(int((r["terminated"] | r["truncated"]).sum())
                           for r in got))
@@ -2919,7 +2490,7 @@ def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
     pstate, _ = pool_env.reset()
     last = torch.where(ends, cfg.max_environment_steps - 1, 0).to(torch.int32)
     pstate = pstate.replace(step_idx=pm.env_rows(last, mesh))
-    pgot, _, _ = _gathered_rollout(pool_env, pstate, act, 1, pm, mesh, dev)
+    pgot, _ = _gathered_rollout(pool_env, pstate, act, 1, pm, mesh)
     # ---- c. one SAC and one PPO train step: parameters equal on the ranks.
     # cuDNN is off here and in the reference: its convolution algorithms
     # differ by batch shape (a rank's ~64 rows against 128), which SAC's
@@ -2927,13 +2498,13 @@ def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
     torch.backends.cudnn.enabled = False
     small = {}
     for kind in ("sac", "ppo"):
-        state_k, metrics, k_ms, syncs = _small_train_step(
+        state_k, metrics, syncs = _small_train_step(
             kind, pm.make_mesh(small_envs), assets, dev, small_envs)
         flat = _flat_floats(state_k).to(dev)
         first = flat.clone()
         dist.broadcast(first, src=0)
         small[kind] = dict(
-            state=state_k, metrics=metrics, ms=k_ms, syncs=syncs,
+            state=state_k, metrics=metrics, syncs=syncs,
             ranks_equal=all(x == 1.0 for x in per_rank(
                 float(torch.equal(flat, first)))))
     torch.backends.cudnn.enabled = True
@@ -2944,16 +2515,14 @@ def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
     ref_env = BatchedEnv(cfg, assets, n_envs, device=dev, seed=0)
     ref_state, _ = ref_env.reset()
     ref_act = act[:1].repeat(n_envs, 1)
-    want, ref_ms, ref_launches = _gathered_rollout(
-        ref_env, ref_state, ref_act, steps, pm, None, dev)
+    want, ref_launches = _gathered_rollout(
+        ref_env, ref_state, ref_act, steps, pm, None)
     out["rollout"] = _compare_rows(got, want)
-    out["one_process_ms_per_step"] = ref_ms
     out["one_process_host_launches"] = ref_launches
     ref_pool = BatchedEnv(cfg, assets, n_envs, device=dev, seed=1)
     rpstate, _ = ref_pool.reset()
     rpstate = rpstate.replace(step_idx=last)
-    pwant, _, _ = _gathered_rollout(ref_pool, rpstate, ref_act, 1, pm, None,
-                                    dev)
+    pwant, _ = _gathered_rollout(ref_pool, rpstate, ref_act, 1, pm, None)
     done = pwant[0]["terminated"] | pwant[0]["truncated"]
     out["pooled"] = dict(_compare_rows(pgot, pwant), pool=cfg.reset_pool,
                          done=int(done.sum()),
@@ -2961,11 +2530,11 @@ def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
                          done_rank1=int(done[n_envs // 2:].sum()))
     torch.backends.cudnn.enabled = False
     for kind, s in small.items():
-        r_state, r_metrics, r_ms, r_syncs = _small_train_step(
+        r_state, r_metrics, r_syncs = _small_train_step(
             kind, None, assets, dev, small_envs)
         out[kind] = dict(
             adam_close(s["state"], r_state), ranks_equal=s["ranks_equal"],
-            ms=s["ms"], one_process_ms=r_ms, envs=small_envs,
+            envs=small_envs,
             syncs=s["syncs"], one_process_syncs=r_syncs,
             metrics={k: [s["metrics"][k], r_metrics[k]] for k in r_metrics})
     torch.backends.cudnn.enabled = True
@@ -2974,7 +2543,7 @@ def _multi_world2(pm, dev, n_envs=MULTI_ENVS, steps=MULTI_STEPS,
 
 
 def multi_worker(args) -> int:
-    """A rank or one process of the [multi], [bench] or --cards phases:
+    """A rank or one process of the [multi] or --cards phases:
     ``--multi-worker <case> <out_dir> [arguments]``, with RANK / WORLD_SIZE
     / LOCAL_RANK / MASTER_ADDR / MASTER_PORT set for a rank."""
     import torch.distributed as dist
@@ -2983,14 +2552,6 @@ def multi_worker(args) -> int:
     case, out_dir, rest = args[0], args[1], args[2:]
     dev = "cuda" if torch.cuda.is_available() else "cpu"
     set_f32_precision()
-    if case in BENCH_MESH_CASES:
-        res = _bench_worker(pm, case, out_dir)
-        with open(os.path.join(out_dir, f"{case}_rank{os.environ['RANK']}"
-                               ".json"), "w") as f:
-            json.dump(res, f)
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        return 0
     if case.startswith("cards"):
         return _cards_worker(case, out_dir, rest)
     if case.startswith("drift"):
@@ -3199,9 +2760,7 @@ def multi_phase(card) -> dict:
         drift = drift_case(tmp, card)
 
     log(f"[multi] world 1 ({w1['backend']}): collectives issued "
-        f"{w1['collectives']}; train step ms, mesh against none: SAC "
-        f"{w1['sac']['ms']} / {w1['sac']['ref_ms']}, PPO {w1['ppo']['ms']} / "
-        f"{w1['ppo']['ref_ms']} [{card}]")
+        f"{w1['collectives']} [{card}]")
     check(w1["backend"] == "nccl" and w1["world"] == 1,
           f"world 1 ran under {w1['backend']}")
     check(sum(w1["collectives"].values()) == 0,
@@ -3216,10 +2775,7 @@ def multi_phase(card) -> dict:
         f"exact {ro['exact']}, max state error {ro['max_state_err']:.3e}, "
         f"pixels apart per step {ro['pixels_apart']} of {ro['pixels_per_step']}"
         f"; {w2['done']} episodes ended; kernel launches per rank "
-        f"{w2['launches']}")
-    log(f"[multi] world 2 ms per env step: ranks {w2['rollout_ms_per_step']}, "
-        f"one process {w2['one_process_ms_per_step']:.2f} (two ranks share "
-        f"one card: a correctness check, not a scaling figure) [{card}]")
+        f"{w2['launches']} [{card}]")
     log(f"[multi] pooled step: pool {po['pool']}, done {po['done']} "
         f"({po['done_rank0']} on rank 0, {po['done_rank1']} on rank 1), "
         f"exact {po['exact']}, max state error {po['max_state_err']:.3e}, "
@@ -3230,8 +2786,7 @@ def multi_phase(card) -> dict:
             f"Adam tolerance of one process {w2[k]['ok']} "
             f"({w2[k]['elements_over_tol']} elements over it; worst "
             f"{w2[k]['worst']} at {w2[k]['worst_over_tol']:.3f} of its "
-            f"tolerance); ms {w2[k]['ms']} against {w2[k]['one_process_ms']}"
-            f"; synchronizing calls in the next train step, rank 0 "
+            f"tolerance); synchronizing calls in the next train step, rank 0 "
             f"{w2[k]['syncs']}, one process {w2[k]['one_process_syncs']}")
     log(f"[multi] world 2: synchronizations outside Python's threads in "
         f"those two counted train steps (gloo's workers), per rank "
@@ -3311,21 +2866,18 @@ def drift_case(tmp: str, card: str) -> dict:
 CARDS = 4
 CARDS_BACKEND = "nccl"
 CARDS_TIMEOUT_S = 900       # per stage
-CARD_TRAIN_STEPS = 3        # train steps of every parity run
-# the timing runs: rank 0 evaluates after the first train step while the
-# other ranks wait for it in the second, so the steps from the third on
-# are timed
-CARD_TIMED_STEPS, CARD_TIMED_FROM = 4, 2
+CARD_TRAIN_STEPS = 3        # train steps of every run
 CARD_RESUME_AT = 2          # the snapshot resumed for the last train step
 CARD_WIDE_ENVS = 4096       # ppo_1024.yml with parallel_env_num overridden
-# run -> (recipe, global envs, held to one process in f32 with cuDNN off)
+# run -> (recipe, global envs, held to one process in f32 with cuDNN off;
+# the others run at the recipe's precision)
 CARD_RUNS = {
     "ppo_wide": (PPO_YML, CARD_WIDE_ENVS, True),
     "ppo": (PPO_YML, RECIPES[PPO_YML]["parallel_env_num"], True),
     "sac": (SAC_YML, RECIPE_ENVS, True),
-    "ppo_wide_timed": (PPO_YML, CARD_WIDE_ENVS, False),
-    "ppo_per_card_timed": (PPO_YML, CARD_WIDE_ENVS * CARDS, False),
-    "sac_timed": (SAC_YML, RECIPE_ENVS, False),
+    "ppo_wide_recipe": (PPO_YML, CARD_WIDE_ENVS, False),
+    "ppo_per_card_recipe": (PPO_YML, CARD_WIDE_ENVS * CARDS, False),
+    "sac_recipe": (SAC_YML, RECIPE_ENVS, False),
 }
 CARD_SNAPSHOT_RUNS = ("ppo", "sac")     # resumed at CARD_RESUME_AT
 # the Adam-parity tolerance is held where the CPU tests hold it: after each
@@ -3338,12 +2890,11 @@ CARD_PARITY_UPDATES = 3
 CARD_WITNESS_ORDER = 10.0
 # stage B: every rank, in order
 CARD_MESH_JOBS = ("ppo_wide", "ppo", "ppo_resumed", "sac", "sac_resumed",
-                  "ppo_wide_timed", "ppo_per_card_timed", "sac_timed")
+                  "ppo_wide_recipe", "ppo_per_card_recipe", "sac_recipe")
 # stage C: one process a card, the cards' jobs side by side (the resumed
 # runs read stage B's snapshots)
 CARD_ONE_JOBS = (("ppo_wide",), ("ppo", "ppo_resumed"),
-                 ("sac", "sac_resumed", "sac_order"),
-                 ("ppo_wide_timed", "sac_timed", "ppo_order"))
+                 ("sac", "sac_resumed", "sac_order"), ("ppo_order",))
 
 
 def _card_steps_per_iter(recipe: str, envs: int) -> int:
@@ -3409,10 +2960,10 @@ def _card_job(job: str, out_dir: str, world: int) -> dict:
     CARD_SNAPSHOT_RUNS (each renamed ``full_latest_<env steps>``), the
     recipe's evaluation once after the first train step, with video in
     ``ppo_wide``. Parity runs are f32 with cuDNN off. -> per train step:
-    device ms (rollout / update split), launches, rendered batch sizes,
-    owned-row ``nonzero`` reads and the host's time in them, metrics;
-    what this process saved, its peak memory, whether the ranks' agents
-    are equal, and the resumed carry against the run without a break."""
+    host launches, rendered batch sizes, the host clock's start and end,
+    metrics; what this process saved, its peak memory, whether the ranks'
+    agents are equal, and the resumed carry against the run without a
+    break."""
     import torch.distributed as dist
     from torchdriveenv_tpu_torch import config as tconfig
     from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
@@ -3426,8 +2977,7 @@ def _card_job(job: str, out_dir: str, world: int) -> dict:
     here = os.path.join(out_dir, f"w{world}", job)
     raw = copy.deepcopy(RECIPES[recipe])
     snapshots = world > 1 and run in CARD_SNAPSHOT_RUNS and not resumed
-    steps = CARD_TRAIN_STEPS if parity else CARD_TIMED_STEPS
-    raw.update(parallel_env_num=envs, total_timesteps=steps * spi,
+    raw.update(parallel_env_num=envs, total_timesteps=CARD_TRAIN_STEPS * spi,
                log_dir=os.path.join(here, "runs"),
                checkpoint_dir=os.path.join(here, "ckpt"),
                full_snapshot_every=CARD_RESUME_AT * spi if snapshots else -1)
@@ -3439,9 +2989,9 @@ def _card_job(job: str, out_dir: str, world: int) -> dict:
     torch.backends.cudnn.deterministic = parity
     dev = torch.device("cuda", torch.cuda.current_device())
 
-    saved, renders, reads = [], [], []
+    saved, renders = [], []
     plain_build, plain_save = train_mod.build_agent, train_mod._save
-    plain_launch, plain_nonzero = rc._launch, torch.nonzero
+    plain_launch = rc._launch
     main = not dist.is_initialized() or dist.get_rank() == 0
 
     def build(*a, **k):
@@ -3463,19 +3013,13 @@ def _card_job(job: str, out_dir: str, world: int) -> dict:
         renders.append((time.perf_counter(), int(town.shape[0])))
         return plain_launch(maps, town, *a, **k)
 
-    def nonzero(*a, **k):
-        t = time.perf_counter()
-        out = plain_nonzero(*a, **k)
-        reads.append((t, time.perf_counter() - t))
-        return out
-
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     resume_from = (os.path.join(w4, f"full_latest_{CARD_RESUME_AT * spi}")
                    if resumed else None)
     with probed_train(train_mod, rc) as probe:
         train_mod.build_agent, train_mod._save = build, save
-        rc._launch, torch.nonzero = launch_, nonzero
+        rc._launch = launch_
         try:
             t0 = time.perf_counter()
             carry = train_mod.train(cfg, resume_from=resume_from)
@@ -3483,19 +3027,12 @@ def _card_job(job: str, out_dir: str, world: int) -> dict:
             wall = time.perf_counter() - t0
         finally:
             train_mod.build_agent, train_mod._save = plain_build, plain_save
-            rc._launch, torch.nonzero = plain_launch, plain_nonzero
-    rows = []
-    for (e0, mark, e1, n), (h0, h1), m in zip(probe.rows, probe.host,
-                                              probe.metrics):
-        total = e0.elapsed_time(e1)
-        roll = e0.elapsed_time(mark) if mark is not None else total
-        in_step = [dt for t, dt in reads if h0 <= t <= h1]
-        rows.append(dict(
-            ms=total, rollout_ms=roll, update_ms=total - roll, launches=n,
-            render_batches=sorted({b for t, b in renders if h0 <= t <= h1}),
-            nonzero_reads=len(in_step), nonzero_ms=1e3 * sum(in_step),
-            host_start=h0, host_end=h1,
-            metrics={k: float(v) for k, v in m.items()}))
+            rc._launch = plain_launch
+    rows = [dict(r, render_batches=sorted(
+                {b for t, b in renders
+                 if r["host_start"] <= t <= r["host_end"]}),
+                 metrics={k: float(v) for k, v in m.items()})
+            for r, m in zip(probe.rows, probe.metrics)]
     mesh = pm.make_mesh(envs)
     out = dict(job=job, world=world, envs=envs, steps_per_iter=spi,
                local_envs=mesh.local_envs if mesh else envs, parity=parity,
@@ -3696,8 +3233,7 @@ def _cards_worker(case: str, out_dir: str, args: list) -> int:
             log(f"{name} {job}: {results[job]}")
         else:
             results[job] = r = _card_job(job, out_dir, world)
-            log(f"{name} {job}: {len(r['rows'])} train steps, ms "
-                f"{[round(x['ms'], 1) for x in r['rows']]}, wall "
+            log(f"{name} {job}: {len(r['rows'])} train steps, wall "
                 f"{r['wall_s']:.1f} s, peak {r['peak_gb']:.2f} GB")
         with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
             json.dump(results, f)
@@ -3757,15 +3293,14 @@ def _torchrun_cli(out_dir: str) -> dict:
                 expected_train_records=CARD_TRAIN_STEPS // max(1, 1000 // spi),
                 eval_records=sum(any(k.startswith("eval/") for k in r)
                                  for r in records),
-                env_steps_per_s=train[-1]["train/env_steps_per_s"] if train
-                else None, videos=videos, total=total)
+                videos=videos, total=total)
 
 
 def cards_phase(card: str) -> dict:
     """--cards 4. Stage B: CARDS ranks under nccl, each on its card, every
     job of CARD_MESH_JOBS; stage C: the one-process runs, one card each,
     side by side (the parity references, the world-4 snapshots resumed in
-    one process, the one-card timing runs); stage D: the README's torchrun
+    one process, the order witnesses); stage D: the README's torchrun
     command. Then each world-4 run against one process, the resumes
     against the run without a break, the checkpoints and the
     evaluation."""
@@ -3793,8 +3328,7 @@ def cards_phase(card: str) -> dict:
     out["stage_s"] = dict(B=t_b - t_a, C=t_c - t_b, D=t_d - t_c)
     log(f"[cards] torchrun CLI: exit 0 in {cli['wall_s']:.1f} s, "
         f"checkpoints {cli['checkpoints']}, {cli['train_records']} train "
-        f"records ({cli['env_steps_per_s']} env-steps/s over the run, "
-        f"evaluation included), {cli['eval_records']} evaluations, videos "
+        f"records, {cli['eval_records']} evaluations, videos "
         f"{cli['videos']} [{card}]")
     check(cli["checkpoints"] == ["full_latest", f"model_{cli['total']}"],
           f"torchrun: checkpoints {cli['checkpoints']}")
@@ -3809,18 +3343,6 @@ def _metrics_close(got: dict, want: dict) -> bool:
     return sorted(got) == sorted(want) and all(
         abs(got[k] - want[k]) <= METRIC_TOL["atol"]
         + METRIC_TOL["rtol"] * abs(want[k]) for k in want)
-
-
-def _timing(rows: list, spi: int) -> dict:
-    """The mean of the train steps from CARD_TIMED_FROM on."""
-    rest = rows[CARD_TIMED_FROM:]
-    ms = sum(r["ms"] for r in rest) / len(rest)
-    upd = sum(r["update_ms"] for r in rest) / len(rest)
-    nz = sum(r["nonzero_ms"] for r in rest) / len(rest)
-    return dict(ms=ms, rollout_ms=ms - upd, update_ms=upd,
-                env_steps_per_s=spi / ms * 1e3,
-                nonzero_reads=rest[-1]["nonzero_reads"], nonzero_ms=nz,
-                nonzero_share_of_update=nz / upd if upd else 0.0)
 
 
 def _first_updating_step(d: str) -> int:
@@ -3876,7 +3398,7 @@ def cards_report(res: dict, tmp: str, card: str) -> dict:
             for k in range(1, CARD_TRAIN_STEPS + 1)]
         metrics_ok = [_metrics_close(g["metrics"], w["metrics"])
                       for g, w in zip(r0["rows"], ref["rows"])]
-        launches = [[row["launches"] for row in r[run]["rows"]]
+        launches = [[row["host_launches"] for row in r[run]["rows"]]
                     for r in ranks]
         batches = [sorted({b for row in r[run]["rows"]
                            for b in row["render_batches"]}) for r in ranks]
@@ -3890,9 +3412,7 @@ def cards_report(res: dict, tmp: str, card: str) -> dict:
             launches=launches, render_batches=batches,
             saved=[r[run]["saved"] for r in ranks],
             peak_gb=[r[run]["peak_gb"] for r in ranks],
-            one_process_peak_gb=ref["peak_gb"],
-            ms=[[round(row["ms"], 1) for row in r[run]["rows"]] for r in ranks],
-            one_process_ms=[round(row["ms"], 1) for row in ref["rows"]])
+            one_process_peak_gb=ref["peak_gb"])
         if "ring_gb" in r0:
             rep.update(ring_gb_per_rank=r0["ring_gb"],
                        ring_gb_global=r0["ring_gb"] * CARDS,
@@ -3910,8 +3430,7 @@ def cards_report(res: dict, tmp: str, card: str) -> dict:
             f"({env_steps} env steps), rendered batches {batches}; saved by "
             f"rank {[len(x) for x in rep['saved']]}; peak GB per rank "
             f"{[round(x, 2) for x in rep['peak_gb']]} (one process "
-            f"{ref['peak_gb']:.2f}); train step ms per rank {rep['ms']}, one "
-            f"process {rep['one_process_ms']} [{card}]")
+            f"{ref['peak_gb']:.2f}) [{card}]")
         checks += [
             (all(rep["ranks_equal"]), f"{run}: the ranks' agents differ"),
             (all(c["ok"] for c in first),
@@ -3970,18 +3489,14 @@ def cards_report(res: dict, tmp: str, card: str) -> dict:
     gap = wide[0][1]["host_start"] - wide[0][0]["host_end"]
     timeout = getattr(dc, "default_pg_nccl_timeout", None)
     out["evaluation"] = dict(
-        rank0_gap_s=gap, second_step_ms=[rows[1]["ms"] for rows in wide],
-        third_step_ms=[rows[2]["ms"] for rows in wide],
+        rank0_gap_s=gap,
         nccl_default_timeout_s=timeout.total_seconds() if timeout else None)
     episodes = [RECIPES[PPO_YML][k]["eval_n_episodes"]
                 for k in ("eval_val_callback", "eval_train_callback")]
     log(f"[cards] ppo_wide's evaluation ({episodes[0]} + {episodes[1]} "
         f"episodes, one video) on rank 0 between train steps 1 and 2: "
-        f"{gap:.1f} s; the second train "
-        f"step per rank {[round(x) for x in out['evaluation']['second_step_ms']]}"
-        f" ms (the third {[round(x) for x in out['evaluation']['third_step_ms']]})"
-        f"; nccl's default timeout {out['evaluation']['nccl_default_timeout_s']}"
-        f" s [{card}]")
+        f"{gap:.1f} s; nccl's default timeout "
+        f"{out['evaluation']['nccl_default_timeout_s']} s [{card}]")
 
     # the witnesses of summation order: one process, a first updating
     # train step's updates twice from one state, the second time with the
@@ -4013,39 +3528,19 @@ def cards_report(res: dict, tmp: str, card: str) -> dict:
              f"{run}: world {CARDS} departs {ratio:.3g} times as far as "
              f"reordered rows in one process, over {CARD_WITNESS_ORDER}")]
 
-    out["timing"] = {}
-    for run in ("ppo_wide_timed", "ppo_per_card_timed", "sac_timed"):
+    out["recipe_runs"] = {}
+    for run in ("ppo_wide_recipe", "ppo_per_card_recipe", "sac_recipe"):
         recipe, envs, _ = CARD_RUNS[run]
         spi = _card_steps_per_iter(recipe, envs)
-        per_rank = [_timing(r[run]["rows"], spi) for r in ranks]
-        # the ranks meet in every update's collectives: the slowest sets
-        # the pace
-        t = dict(world=max(per_rank, key=lambda x: x["ms"]),
-                 world_per_rank=per_rank, envs=envs,
-                 launches=[[row["launches"] for row in r[run]["rows"]]
-                           for r in ranks])
-        if run in one:
-            t["one_process"] = _timing(one[run]["rows"], spi)
-        out["timing"][run] = t
-        x = t["world"]
-        ms = [p["ms"] for p in per_rank]
-        share = [p["nonzero_share_of_update"] for p in per_rank]
-        log(f"[cards] {run} ({envs} envs, the recipe's precision, train "
-            f"steps {CARD_TIMED_FROM + 1}-{CARD_TIMED_STEPS}): world {CARDS}"
-            f", the slowest rank {x['ms']:.1f} ms a train step = rollout "
-            f"{x['rollout_ms']:.1f} + update {x['update_ms']:.1f}, "
-            f"{x['env_steps_per_s']:.0f} env-steps/s (ranks {min(ms):.1f}-"
-            f"{max(ms):.1f} ms); owned-row nonzero reads "
-            f"{x['nonzero_reads']} a step, the host's wait in them "
-            f"{min(share):.4f}-{max(share):.4f} of the update over the ranks"
-            + (f"; one process {t['one_process']['ms']:.1f} ms = "
-               f"{t['one_process']['rollout_ms']:.1f} + "
-               f"{t['one_process']['update_ms']:.1f}, "
-               f"{t['one_process']['env_steps_per_s']:.0f} env-steps/s"
-               if "one_process" in t else "") + f" [{card}]")
-        checks.append((all(n == 2 * spi // envs for ls in t["launches"]
+        launches = [[row["host_launches"] for row in r[run]["rows"]]
+                    for r in ranks]
+        out["recipe_runs"][run] = dict(envs=envs, launches=launches)
+        log(f"[cards] {run} ({envs} envs, the recipe's precision), world "
+            f"{CARDS}: rasterizer launches per train step per rank "
+            f"{launches} [{card}]")
+        checks.append((all(n == 2 * spi // envs for ls in launches
                            for n in ls),
-                       f"{run}: rasterizer launches {t['launches']}"))
+                       f"{run}: rasterizer launches {launches}"))
     for ok, msg in checks:
         check(ok, msg)
     return out
@@ -4440,7 +3935,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
               file=sys.stderr)
         return 2
-    from torchdriveenv_tpu_torch.bench import card_line, phase_ms
     from torchdriveenv_tpu_torch.config import EnvConfig
     from torchdriveenv_tpu_torch.env.batched import BatchedEnv
     from torchdriveenv_tpu_torch.maps.arrays import load_assets
@@ -4449,7 +3943,7 @@ def main() -> int:
     from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
     set_f32_precision()
-    card = card_line()
+    card = all_cards()[0]
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -4638,33 +4132,24 @@ def main() -> int:
     state, obs = env.reset()
     for _ in range(4):
         state = env.step(state, act).state
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        out = env.step(state, act)
-        state = out.state
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    steps_per_s = N_ENVS * TIMED_STEPS / elapsed
-    # the same path traced for as many steps: what the kernel ran
+    # the path traced: what the kernel ran
 
     def traced():
         nonlocal state
-        for _ in range(TIMED_STEPS):
+        for _ in range(TRACED_STEPS):
             o = env.step(state, act)
             state = o.state
         return o
 
-    out, counts, host = trace_runs(traced, TIMED_STEPS)
+    out, counts, host = trace_runs(traced, TRACED_STEPS)
     launches = max(counts)
     checksum = int(out.obs.sum())
-    log(f"[main] {TIMED_STEPS} steps x {N_ENVS} envs in {elapsed:.3f} s: "
-        f"{steps_per_s:.1f} env-steps/s; in traces of {TIMED_STEPS} more "
-        f"steps, rasterizer kernel runs {counts}, host launches {host}; obs "
+    log(f"[main] {N_ENVS} envs, in traces of {TRACED_STEPS} steps: "
+        f"rasterizer kernel runs {counts}, host launches {host}; obs "
         f"checksum {checksum} [{card}]")
-    if launches != TIMED_STEPS:
+    if launches != TRACED_STEPS:
         raise AssertionError(f"rasterizer kernel ran {counts} times in "
-                             f"{TIMED_STEPS} renders")
+                             f"{TRACED_STEPS} renders")
     if host != 0:
         raise AssertionError(f"{host} host launches in steps that replay "
                              "their graphs")
@@ -4681,18 +4166,14 @@ def main() -> int:
     log(f"[main] agents present per env: "
         f"{state.present.float().sum(1).mean():.1f}; "
         f"done this step: {int((out.terminated | out.truncated).sum())}")
-    _, npc_counts, npc_host = trace_runs(traced, TIMED_STEPS,
+    _, npc_counts, npc_host = trace_runs(traced, TRACED_STEPS,
                                          runs=npc_gaps_runs)
-    log(f"[main] in traces of {TIMED_STEPS} more steps, NPC kernel runs "
+    log(f"[main] in traces of {TRACED_STEPS} more steps, NPC kernel runs "
         f"{npc_counts}, host launches {npc_host}")
-    check(max(npc_counts) == TIMED_STEPS, f"NPC kernel ran {npc_counts} "
-          f"times in {TIMED_STEPS} steps")
+    check(max(npc_counts) == TRACED_STEPS, f"NPC kernel ran {npc_counts} "
+          f"times in {TRACED_STEPS} steps")
     check(npc_host == 0, f"{npc_host} NPC kernel host launches in steps that "
           "replay their graphs")
-
-    phases = phase_ms(cfg, assets, state, env.generator)
-    log("[main] phase ms per step: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()) + f" [{card}]")
 
     fenv = BatchedEnv(cfg, assets, N_ENVS, seed=4, with_final_obs=True)
     fstate, _ = fenv.reset()
@@ -4720,8 +4201,7 @@ def main() -> int:
                              "with_final_obs")
     del fenv, fstate, fout
 
-    bench_path = bench_phase(card)
-    npc = npc_phase(assets, act, card, prep_of, steps_per_s)
+    npc = npc_phase(assets, act, card, prep_of)
     gym = gym_phase(assets, state, card, have)
     learner = learner_phase(assets, env, state, act, card)
     del env, state, out
@@ -4767,11 +4247,9 @@ def main() -> int:
         "bytes_bound_ms": npc_cmp["bytes_bound_ms"],
         "operations_bound_ms": npc_cmp["operations_bound_ms"],
     }] + [map_kernel_line(maps_path, name) for name in ("stamp", "edt")],
-        "main_path": {"env_steps_per_s": steps_per_s, "timed_steps":
-                      TIMED_STEPS, "num_envs": N_ENVS, "obs_checksum": checksum,
-                      "phases_ms": phases,
+        "main_path": {"traced_steps": TRACED_STEPS, "num_envs": N_ENVS,
+                      "obs_checksum": checksum,
                       "nseg_mean": main_cmp["nseg_mean"]},
-        "bench_path": bench_path,
         "parity_path": parity, "maps_path": maps_path,
         "npc_path": npc, "gym_path": gym, "learner_path": learner,
         "train_path": trained, "tools_path": tools,

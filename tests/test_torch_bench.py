@@ -1,51 +1,29 @@
-"""The bench's two modes (``torchdriveenv_tpu_torch/bench.py``) on the CPU.
+"""The env step's least-work counts (``torchdriveenv_tpu_torch/bench.py``)
+on the CPU.
 
-``--breakdown``: ``phase_costs`` counts each phase's least bytes and
-operations from shapes and from the inputs. Here the bytes are held to hand
-sums of the tensors the step and the reset really read, gather and write,
-the counts to linearity in the batch, the render's operations to a
-brute-force count over the kernel's culls (``cull_masks_torch``), the
-roofline to its arithmetic on fixed times, and the file to the JAX bench's
-keys (``artifacts/bench_r05_breakdown.json``).
-
-``--mesh``: without a launcher it stops and names torchrun; two gloo ranks
-running the chunk loop (each a subprocess of this module, ``python
-tests/test_torch_bench.py <rank> <world> <store>``, meeting through
-``init_method=file://<store>``) sum to one process's checksums: frames
-exactly, rewards within 1e-6.
-
-Whether a card is present is never asked: everything here runs on the CPU.
+``phase_costs`` counts each phase's least bytes and operations from shapes
+and from the inputs. Here the bytes are held to hand sums of the tensors
+the step and the reset really read, gather and write, the counts to
+linearity in the batch, the render's operations to a brute-force count
+over the kernel's culls (``cull_masks_torch``), and the roofline to its
+arithmetic on fixed times.
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
 
+import pytest
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if ROOT not in sys.path:
-    sys.path.insert(0, ROOT)
+from torchdriveenv_tpu_torch import bench
+from torchdriveenv_tpu_torch.config import EnvConfig
+from torchdriveenv_tpu_torch.env import core
+from torchdriveenv_tpu_torch.env.batched import BatchedEnv
+from torchdriveenv_tpu_torch.maps.arrays import load_assets
+from torchdriveenv_tpu_torch.npc.policy_net import default_params
+from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
 
-from torchdriveenv_tpu_torch import bench  # noqa: E402
-from torchdriveenv_tpu_torch.config import EnvConfig  # noqa: E402
-from torchdriveenv_tpu_torch.env import core  # noqa: E402
-from torchdriveenv_tpu_torch.env.batched import BatchedEnv, make_env_fns  # noqa: E402
-from torchdriveenv_tpu_torch.maps.arrays import load_assets  # noqa: E402
-from torchdriveenv_tpu_torch.npc.policy_net import default_params  # noqa: E402
-from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc  # noqa: E402
-from torchdriveenv_tpu_torch.parallel import mesh as pm  # noqa: E402
-
-N = 8                   # the two-rank run's global envs
-WORLD = 2
-CHUNK, ITERS = 3, 1
-WORKER_TIMEOUT_S = 150
-# short episodes and a pool smaller than the batch: dones happen, and the
-# pool is consumed in global rank order
-MESH_CFG = dict(max_environment_steps=2, reset_pool=4)
-JAX_BREAKDOWN = os.path.join(ROOT, "artifacts", "bench_r05_breakdown.json")
+torch.set_num_threads(2)
+ACT = (0.3, 0.0)
 _ASSETS = {}
 
 
@@ -53,82 +31,6 @@ def _assets():
     if "val" not in _ASSETS:
         _ASSETS["val"] = load_assets("val", device="cpu")
     return _ASSETS["val"]
-
-
-def _chunks(mesh):
-    """The bench's chunk loop over ``N`` envs on this rank's rows."""
-    cfg = EnvConfig(**MESH_CFG)
-    reset_fn, step_fn = make_env_fns(cfg, _assets(), mesh=mesh)
-    gen = torch.Generator().manual_seed(0)
-    state, _ = reset_fn(gen, N)
-    act = torch.tensor([[0.3, 0.0]]).repeat(state.town.shape[0], 1)
-    run = bench.run_chunks(step_fn, state, act, gen, CHUNK, ITERS, "cpu",
-                           mesh=mesh, count_done=True)
-    return dict(obs=int(run.obs_sum), reward=float(run.reward_sum),
-                done=int(run.done), times_by_rank=run.times_by_rank)
-
-
-def worker(rank, world, store):
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
-    torch.set_num_threads(1)
-    assert pm.maybe_init_distributed(backend="gloo",
-                                     init_method=f"file://{store}",
-                                     timeout_s=60)
-    try:
-        torch.save(_chunks(pm.make_mesh(N)), f"{store}.rank{rank}")
-    finally:
-        torch.distributed.destroy_process_group()
-
-
-def spawn(tmp_path, world=WORLD, attempts=2):
-    """Run the chunk loop on ``world`` gloo ranks -> each rank's result. A
-    run whose ranks never met (gloo's TCP set-up failed before any code
-    under test ran) is started once more with a fresh store."""
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
-                        "MASTER_PORT")}
-    env.update(OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
-        [ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else [])))
-    for attempt in range(attempts):
-        store = str(tmp_path / f"store{attempt}")
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(r), str(world),
-             store], env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(world)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        failed = [(r, p.returncode, out)
-                  for r, (p, out) in enumerate(zip(procs, outs))
-                  if p.returncode]
-        if not failed:
-            return [torch.load(f"{store}.rank{r}", weights_only=False)
-                    for r in range(world)]
-        if not all("connectFullMesh failed" in out for _, _, out in failed):
-            break
-    raise AssertionError("\n".join(f"rank {r} exited {rc_}:\n{out[-3000:]}"
-                                    for r, rc_, out in failed))
-
-
-if __name__ == "__main__":
-    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
-    sys.exit(0)
-
-
-# --------------------------------------------------------------------------
-# the tests
-# --------------------------------------------------------------------------
-
-import pytest  # noqa: E402
-
-torch.set_num_threads(2)
-ACT = (0.3, 0.0)
 
 
 def _stepped(cfg, b, seed=2):
@@ -295,84 +197,3 @@ def test_roofline_arithmetic(flops, nbytes, bound_by):
     assert r["bound_by"] == bound_by
     assert r["phases_least_ms"]["render"] == pytest.approx(
         2 * max(flops / 67e12, nbytes / 3.35e12) * 1e3, rel=1e-12)
-
-
-def _key_paths(tree, prefix=()):
-    out = set()
-    for k, v in tree.items():
-        out.add(prefix + (k,))
-        if isinstance(v, dict):
-            out |= _key_paths(v, prefix + (k,))
-    return out
-
-
-def test_breakdown_holds_the_jax_breakdowns_keys():
-    cfg = EnvConfig()
-    assets = _assets()
-    state = _stepped(cfg, 2)
-    costs = bench.phase_costs(cfg, assets, state,
-                              bench.render_inputs(cfg, assets, state))
-    phases = dict.fromkeys(bench.PHASES, 1.0)
-    report = bench.breakdown_report(2, 16, 0.32, phases, costs, 0.01, 0.25,
-                                    "NVIDIA H100 80GB HBM3, 700.00 W",
-                                    rows=dict(rank=0, world=2, lo=0, hi=2,
-                                              global_envs=4))
-    with open(JAX_BREAKDOWN) as f:
-        jax_keys = _key_paths(json.load(f))
-    assert jax_keys <= _key_paths(report)
-    assert {("roofline", "least_ms_per_step"), ("roofline", "bound_by"),
-            ("rows", "global_envs")} <= _key_paths(report)
-    assert report["fused_per_step_ms"] == pytest.approx(20.0)
-    json.dumps(report)      # a file of plain numbers and strings
-
-
-@pytest.mark.parametrize("argv, message", [
-    (["--mesh"], "torchrun --nproc_per_node W -m "
-                 "torchdriveenv_tpu_torch.bench --mesh"),
-    (["--mesh", "--profile", "t.json"], None)])
-def test_mesh_without_a_launcher_stops(monkeypatch, capsys, argv, message):
-    """No launcher in the environment: ``--mesh`` stops and names torchrun,
-    never running one process; ``--profile`` traces one process only."""
-    for var in ("RANK", "WORLD_SIZE", "TDE_DISTRIBUTED"):
-        monkeypatch.delenv(var, raising=False)
-    with pytest.raises(SystemExit) as e:
-        bench.main(argv)
-    if message is None:
-        assert e.value.code == 2
-        assert "--profile traces one process" in capsys.readouterr().err
-    else:
-        assert message in str(e.value.code)
-    assert not torch.distributed.is_initialized()
-
-
-def test_chunk_loop_takes_the_steps_of_a_plain_loop():
-    """One process: the chunk loop's state, checksums and done count are a
-    plain loop's over the same steps."""
-    one = _chunks(None)
-    cfg = EnvConfig(**MESH_CFG)
-    reset_fn, step_fn = make_env_fns(cfg, _assets())
-    gen = torch.Generator().manual_seed(0)
-    state, _ = reset_fn(gen, N)
-    act = torch.tensor([ACT]).repeat(N, 1)
-    done = 0
-    for i in range(CHUNK * (1 + ITERS)):
-        out = step_fn(state, act, gen)
-        state = out.state
-        if i >= CHUNK:
-            done += int((out.terminated | out.truncated).sum())
-    assert one["obs"] == int(out.obs.sum())
-    assert one["reward"] == float(out.reward.sum())
-    assert one["done"] == done > 0
-    assert len(one["times_by_rank"]) == 1
-    assert len(one["times_by_rank"][0]) == ITERS
-
-
-def test_two_gloo_ranks_sum_to_one_process(tmp_path):
-    ranks = spawn(tmp_path)
-    one = _chunks(None)
-    for r in ranks:
-        assert r["obs"] == one["obs"]
-        assert r["reward"] == pytest.approx(one["reward"], rel=1e-6)
-        assert r["times_by_rank"] == ranks[0]["times_by_rank"]
-        assert [len(t) for t in r["times_by_rank"]] == [ITERS] * WORLD
-    assert sum(r["done"] for r in ranks) == one["done"] > 0

@@ -236,13 +236,12 @@ def test_npc_decisions_part_where_an_npc_moves(mode):
     assert "decision/cell" in tr.result()["flips_by"]
 
 
-@pytest.mark.parametrize("cudnn_tf32", [False, True])
-def test_set_f32_precision_sets_both_flags(monkeypatch, cudnn_tf32):
+def test_set_f32_precision_sets_both_flags(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", not cudnn_tf32)
-    precision.set_f32_precision(cudnn_tf32=cudnn_tf32)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    precision.set_f32_precision()
     assert torch.backends.cuda.matmul.allow_tf32 is False
-    assert torch.backends.cudnn.allow_tf32 is cudnn_tf32
+    assert torch.backends.cudnn.allow_tf32 is False
 
 
 def test_train_sets_the_f32_precision(tmp_path, monkeypatch):
@@ -266,12 +265,11 @@ def test_train_sets_the_f32_precision(tmp_path, monkeypatch):
 
 
 def test_every_entry_point_sets_the_f32_precision():
-    """Every tool's and example's ``main`` and the bench's call the
-    precision function, and no other module of the port sets a TF32 flag."""
+    """Every tool's and example's ``main`` calls the precision function,
+    and no other module of the port sets a TF32 flag."""
     mains = 0
     for path in (glob.glob(os.path.join(PORT, "tools", "*.py"))
-                 + glob.glob(os.path.join(PORT, "examples", "*.py"))
-                 + [os.path.join(PORT, "bench.py")]):
+                 + glob.glob(os.path.join(PORT, "examples", "*.py"))):
         with open(path) as f:
             tree = ast.parse(f.read())
         for fn in tree.body:
@@ -281,7 +279,7 @@ def test_every_entry_point_sets_the_f32_precision():
                           and isinstance(n.func, ast.Name)}
                 assert "set_f32_precision" in called, path
                 mains += 1
-    assert mains == 11
+    assert mains == 8
     setters = []
     for path in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True):
         with open(path) as f:

@@ -32,11 +32,6 @@ PYTHON_ONLY = {
     ("bench.py", "tot / 1000.0"),
     ("models/cnn.py", "math.sqrt(1.0 / fan_in) / 0.8796256610342398"),
     ("tools/compile_assets.py", "os.path.getsize(p) / 1000000.0"),
-    ("tools/profile_learner.py", "buf.frames.numel() / 1000000000.0"),
-    ("tools/profile_learner.py", "flops / 1000000000.0"),
-    ("tools/profile_learner.py",
-     "flops / (ms * 0.001) / H100_PEAK_BF16_FLOPS"),
-    ("tools/profile_learner.py", "nbytes / (ms * 0.001) / H100_PEAK_HBM_BYTES"),
 }
 
 

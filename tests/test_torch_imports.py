@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``torchdriveenv_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, Flax or the JAX package."""
+``chip_smoke.py`` imports JAX, Flax or the JAX package, and no TPU
+constant is carried into the port."""
 
 import ast
 import os
@@ -41,8 +42,7 @@ def test_the_package_has_the_slice_modules():
                 "npc/policy_net", "env/gym_adapter", "utils/seeding",
                 "parallel/mesh", "maps/compile", "data_utils",
                 "tools/__init__", "tools/distill_npc", "tools/bc_pretrain",
-                "tools/eval_checkpoints", "tools/profile_learner",
-                "tools/profile_step", "tools/diagnose_val",
+                "tools/eval_checkpoints", "tools/diagnose_val",
                 "tools/audit_map_fidelity", "maps/mapkit",
                 "tools/compile_assets", "examples/__init__",
                 "examples/evaluate_policy", "examples/rollout_example"):
@@ -92,3 +92,11 @@ def test_optional_packages_are_imported_inside_functions(path):
         assert name.split(".")[0] not in ("yaml", "PIL", "tensorboard",
                                           "wandb"), f"{path} imports {name}"
         assert name != "torch.utils.tensorboard", path
+
+
+def test_no_tpu_constant_in_the_port():
+    for d, _, files in os.walk(os.path.join(ROOT, "torchdriveenv_tpu_torch")):
+        for name in files:
+            if name.endswith((".py", ".sh", ".cu")):
+                with open(os.path.join(d, name)) as f:
+                    assert "V5E" not in f.read(), os.path.join(d, name)

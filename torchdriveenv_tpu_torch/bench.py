@@ -1,120 +1,42 @@
-"""Headline benchmark of the port: lockstep env throughput on one GPU.
+"""The env step's least work, counted from shapes and from the inputs.
 
-Runs the batched env step of ``env/batched.py`` (bicycle kinematics for up
-to 96 agents per env, IDM NPCs, OBB collision, SDF offroad, traffic
-lights, waypoint reward, pooled auto-reset, and the 3x64x64 birdview by
-the CUDA rasterizer) at 4096 envs on the train suite with the action
-[0.3, 0.0], the same workload as the JAX package's ``bench.py``. ``--npc
-policy`` drives the NPCs with the GRU policy in place of the IDM route
-follower.
+``phase_costs`` gives each phase of the batched env step of
+``env/batched.py`` (physics, the render, the pooled auto-reset with every
+env done) its least bytes and operations: each input byte read once, each
+output byte written once, the operations these inputs need. ``least_s``
+and ``roofline`` turn them into the least time on one H100 and a measured
+step's shares of its f32 and HBM peaks; ``profile_steps`` reads the
+device's busy and idle share from a torch.profiler trace. The benchmark's
+frozen copies of these (``benchmark/metrics/_costs.py``,
+``benchmark/metrics/_trace.py``) are held equal to them by
+``benchmark/tests/test_bench_yardstick.py``.
 
-Prints ONE JSON line: env-steps/s, the chunk times and their CoV guard, the
-obs checksum, the per-phase times (physics, render, auto-reset with every
-env done) and the card's name and power limit.
-
-    python -m torchdriveenv_tpu_torch.bench [--num_envs 4096] [--chunk 64]
-        [--npc {route,policy}] [--breakdown OUT_JSON]
-    torchrun --nproc_per_node W -m torchdriveenv_tpu_torch.bench --mesh
-
-``--breakdown OUT_JSON`` also writes the phases' times beside their least
-work, counted from shapes and from these inputs (``phase_costs``: each
-input byte read once, each output byte written once, the operations these
-inputs need), and the step's share of the H100's f32 and HBM peaks.
-
-``--mesh`` runs the data-parallel env step (``parallel/mesh.py``) under a
-launcher: every rank seeds its generator with ``--seed``, draws at global
-width and steps its own rows; each chunk ends in one all-reduce of a
-scalar, so the slowest rank sets the time. Rank 0 prints the line.
+This module has no entry point. The port's throughput is measured by
+the benchmark, ``python3 -m benchmark.run --workload <cell>``; phase
+times come from the spans of ``utils/spans.py``: ``with
+spans.recording():`` around the work, then ``spans.records()``.
 """
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
-import subprocess
-import sys
 import time
-from typing import Any, List, NamedTuple, Optional
+from typing import Any, Optional
 
 import torch
-import torch.distributed as dist
 
 from torchdriveenv_tpu_torch.config import CollisionMetric, EnvConfig
 from torchdriveenv_tpu_torch.env import core
-from torchdriveenv_tpu_torch.env.batched import (
-    _autoreset,
-    _obs_batched,
-    _reset_draws,
-    make_env_fns,
-)
-from torchdriveenv_tpu_torch.maps.arrays import load_assets, resolve_device
 from torchdriveenv_tpu_torch.npc.policy_net import (HIDDEN, NpcGRU,
                                                    default_params)
 from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
-from torchdriveenv_tpu_torch.parallel import mesh as pm
-from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
 
 # NVIDIA H100 SXM data sheet, at the card's full 700 W: f32 outside the
 # tensor cores, HBM3
 H100_PEAK_F32_FLOPS = 67e12
 H100_PEAK_HBM_BYTES = 3.35e12
 PHASES = ("physics", "render", "autoreset_pool_all_done")
-
-
-def card_line() -> str:
-    """`nvidia-smi --query-gpu=name,power.limit` of the first card."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def timed_ms(fn, iters: int = 3, device="cuda", events: bool = False
-             ) -> float:
-    """Best-of-`iters` time of fn() in ms, after one warm-up call. By
-    default the host's clock, each call ending in a synchronize of
-    ``device``; with ``events`` on a GPU, CUDA events around each call
-    (the device's clock). On the CPU every call returns when its work is
-    done, and the host's clock is the only one."""
-    on_gpu = torch.device(device).type == "cuda"
-    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
-    fn()
-    sync()
-    best = float("inf")
-    for _ in range(iters):
-        if events and on_gpu:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            best = min(best, start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            best = min(best, (time.perf_counter() - t0) * 1e3)
-    return best
-
-
-def phase_ms(cfg, assets, state, generator) -> dict:
-    """Physics (core.step alone), render (the full batch) and the pooled
-    auto-reset with every env done, each timed on its own."""
-    n = state.town.shape[0]
-    actions = torch.tensor([[0.3, 0.0]], device=assets.device).repeat(n, 1)
-    done = torch.ones(n, dtype=torch.bool, device=assets.device)
-    npc_params = (default_params(assets.device) if cfg.npc_mode == "policy"
-                  else None)
-    return {
-        "physics": timed_ms(lambda: core.step(cfg, assets, state, actions,
-                                              npc_params=npc_params)),
-        "render": timed_ms(lambda: _obs_batched(cfg, assets, state)),
-        "autoreset_pool_all_done": timed_ms(
-            lambda: _autoreset(cfg, assets, state, done,
-                               _reset_draws(cfg, assets, n, generator))),
-    }
 
 
 def traced_kernels(fn, trace_path: str):
@@ -412,7 +334,7 @@ def render_inputs(cfg: EnvConfig, assets, state: core.EnvState):
 
 def phase_costs(cfg: EnvConfig, assets, state: core.EnvState, prep,
                 npc_params: Optional[NpcGRU] = None) -> dict:
-    """Least work of each phase of ``phase_ms`` on ``state``: {phase:
+    """Least work of each phase of the env step on ``state``: {phase:
     {"flops", "bytes"}}. ``prep``: ``render_inputs(cfg, assets, state)``.
     Counted from shapes and from these inputs (the render's from the
     segments and primitives that survive the kernel's culls), never from a
@@ -461,278 +383,3 @@ def roofline(costs: dict, per_step_s: float, done_share: float,
         "phases_least_ms": {p: least_s(costs[p], peak_flops, peak_bytes)[0]
                             * 1e3 for p in PHASES},
     }
-
-
-def breakdown_report(num_envs: int, chunk: int, best_chunk_s: float,
-                     phases: dict, costs: dict, done_share: float,
-                     render_kernel_ms: float, card: str,
-                     rows: Optional[dict] = None) -> dict:
-    """The ``--breakdown`` file: the JAX bench's keys (``num_envs``,
-    ``chunk_steps``, ``fused_per_step_ms``, ``phases_ms_per_step``,
-    ``costs``, ``device``, ``roofline``), the roofline's least time and
-    bound, the share of envs done per step, the kernel's time alone on the
-    same inputs, and under ``--mesh`` which rows were counted."""
-    per_step_s = best_chunk_s / chunk
-    report = {
-        "num_envs": num_envs,
-        "chunk_steps": chunk,
-        "fused_per_step_ms": per_step_s * 1e3,
-        "phases_ms_per_step": phases,
-        "costs": costs,
-        "device": card,
-        "done_share_per_step": done_share,
-        "render_kernel_ms": render_kernel_ms,
-        "roofline": roofline(costs, per_step_s, done_share),
-    }
-    if rows is not None:
-        report["rows"] = rows
-    return report
-
-
-
-
-# ---------------------------------------------------------------------------
-# the timed loop
-# ---------------------------------------------------------------------------
-
-
-class ChunkRun(NamedTuple):
-    """What ``run_chunks`` measured."""
-
-    state: Any                        # the envs' state after the last chunk
-    first_s: float                    # the warm-up chunk, seconds
-    times: List[float]                # this rank's timed chunks, seconds
-    times_by_rank: List[List[float]]  # every rank's; ``[times]`` in one process
-    reward_sum: torch.Tensor          # the last step's rewards, summed
-    obs_sum: torch.Tensor             # the last step's frames, summed (int64)
-    done: Optional[torch.Tensor]      # envs done while timed (own rows)
-
-
-def run_chunks(step_fn, state, actions, generator, chunk: int, iters: int,
-               device, mesh: Optional[pm.Mesh] = None,
-               count_done: bool = False) -> ChunkRun:
-    """A warm-up chunk of ``chunk`` env steps, then ``iters`` timed chunks,
-    each ending in a synchronize of ``device``. With a ``mesh`` each chunk
-    first ends in one all-reduce of a scalar, so the slowest rank sets
-    every rank's time; after the last chunk the checksums are summed over
-    the ranks and every rank's times gathered. ``count_done``: count the
-    envs done over the timed chunks on the device (no host read inside the
-    window)."""
-    device = torch.device(device)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    tick = torch.zeros(1, device=device) if mesh is not None else None
-    done = (torch.zeros((), dtype=torch.int64, device=device) if count_done
-            else None)
-
-    def timed(state, done):
-        t0 = time.perf_counter()
-        for _ in range(chunk):
-            out = step_fn(state, actions, generator)
-            state = out.state
-            if done is not None:
-                done += (out.terminated | out.truncated).sum()
-        # fold the last obs into a checksum, as the JAX bench does
-        sums = (out.reward.sum(), out.obs.sum())
-        pm.all_reduce_([tick], mesh)
-        sync()
-        return state, sums, time.perf_counter() - t0
-
-    state, _, first_s = timed(state, None)
-    times = []
-    for _ in range(iters):
-        state, (r_sum, o_sum), t = timed(state, done)
-        times.append(t)
-    times_by_rank = [times]
-    if mesh is not None:
-        pm.all_reduce_([r_sum, o_sum], mesh)
-        by_rank = torch.zeros(mesh.world, iters, dtype=torch.float64,
-                              device=device)
-        by_rank[mesh.rank] = torch.tensor(times, dtype=torch.float64)
-        pm.all_reduce_([by_rank], mesh)
-        times_by_rank = by_rank.tolist()
-    return ChunkRun(state, first_s, times, times_by_rank, r_sum, o_sum, done)
-
-
-def _spread(times: List[float]):
-    """-> (CoV, contended) of chunk times; warns when the machine was
-    likely contended."""
-    best = min(times)
-    mean_t = sum(times) / len(times)
-    cov = (sum((t - mean_t) ** 2 for t in times) / len(times)) ** 0.5 / mean_t
-    spread = max(times) / best
-    contended = spread > 2.0 or cov > 0.25
-    if contended:
-        print(f"WARNING: chunk-time spread {spread:.1f}x, CoV {cov:.2f}: the "
-              "machine was likely contended; treat this record as suspect",
-              file=sys.stderr)
-    return cov, contended
-
-
-def write_breakdown(path: str, cfg: EnvConfig, assets, run: ChunkRun,
-                    chunk: int, phases: dict, card: str,
-                    rows: Optional[dict] = None) -> dict:
-    """Count the phases' work on ``run.state``, time the kernel alone on
-    the same inputs, and write ``breakdown_report`` to ``path``."""
-    state = run.state
-    rcfg = cfg.simulator.renderer
-    prep = render_inputs(cfg, assets, state)
-    npc_params = (default_params(assets.device) if cfg.npc_mode == "policy"
-                  else None)
-    costs = phase_costs(cfg, assets, state, prep, npc_params)
-    kernel_ms = timed_ms(lambda: rc.render_obs_cuda(
-        assets.maps, state.town, *prep, res=rcfg.obs_res, fov=rcfg.obs_fov,
-        left_handed=rcfg.left_handed_coordinates,
-        highlight_ego=rcfg.highlight_ego_vehicle), iters=20,
-        device=assets.device, events=True)
-    b = state.town.shape[0]
-    done_share = int(run.done) / (b * chunk * len(run.times))
-    report = breakdown_report(b, chunk, min(run.times), phases, costs,
-                              done_share, kernel_ms, card, rows)
-    with open(path, "w") as f:
-        json.dump(report, f, indent=1)
-    print(f"breakdown -> {path}: " + json.dumps(report["roofline"]),
-          file=sys.stderr)
-    return report
-
-
-def main(argv=None) -> Optional[dict]:
-    """Run the bench; print its line and return it (rank 0; other ranks of
-    ``--mesh`` print nothing and return None)."""
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--num_envs", type=int, default=4096)
-    ap.add_argument("--chunk", type=int, default=64, help="steps per timed chunk")
-    ap.add_argument("--iters", type=int, default=5, help="timed chunks")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--no_render", action="store_true")
-    ap.add_argument("--npc", default="route", choices=["route", "policy"],
-                    help="NPC model: the IDM route follower (default) or the "
-                    "GRU policy (npc/policy_net.py)")
-    ap.add_argument("--profile", metavar="TRACE_JSON", default=None,
-                    help="also trace 8 steps with torch.profiler, write the "
-                    "chrome trace there and add the device's idle share and "
-                    "top kernels to the output")
-    ap.add_argument("--breakdown", metavar="OUT_JSON", default=None,
-                    help="also write the phases' times, their least bytes "
-                    "and operations counted from shapes, and the step's "
-                    "share of the H100's f32 and HBM peaks to OUT_JSON "
-                    "(under --mesh, rank 0's rows)")
-    ap.add_argument("--mesh", action="store_true",
-                    help="the data-parallel env step over the ranks of a "
-                    "launcher: torchrun --nproc_per_node W -m "
-                    "torchdriveenv_tpu_torch.bench --mesh")
-    args = ap.parse_args(argv)
-    if args.mesh and args.profile:
-        ap.error("--profile traces one process: run it without --mesh")
-
-    mesh, owned_group = None, False
-    if args.mesh:
-        owned_group = not dist.is_initialized()
-        if not pm.maybe_init_distributed():
-            raise SystemExit(
-                "--mesh runs under a launcher, which this process lacks: "
-                "torchrun --nproc_per_node W -m torchdriveenv_tpu_torch.bench "
-                "--mesh")
-        mesh = pm.make_mesh(args.num_envs)
-    device = resolve_device(None)
-    set_f32_precision()
-    cfg = EnvConfig(npc_mode=args.npc)
-    assets = load_assets("train", device=device)
-    reset_fn, step_fn = make_env_fns(cfg, assets, render=not args.no_render,
-                                     mesh=mesh)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    state, _ = reset_fn(gen, args.num_envs)
-    actions = torch.tensor([[0.3, 0.0]], device=device).repeat(
-        state.town.shape[0], 1)
-    run = run_chunks(step_fn, state, actions, gen, args.chunk, args.iters,
-                     device, mesh=mesh, count_done=bool(args.breakdown))
-    if args.mesh:
-        record = _mesh_record(args, run, mesh, cfg, assets, gen)
-    else:
-        record = _record(args, run, step_fn, actions, gen, cfg, assets)
-    if record is not None:
-        print(json.dumps(record))
-    if owned_group:
-        dist.destroy_process_group()
-    return record
-
-
-def _record(args, run: ChunkRun, step_fn, actions, gen, cfg, assets) -> dict:
-    """The one-process line (and the breakdown file)."""
-    times = run.times
-    best = min(times)
-    cov, contended = _spread(times)
-    extra = {}
-    if args.profile:
-        extra["profile"] = profile_steps(step_fn, run.state, actions, gen, 8,
-                                         args.profile)
-    phases = phase_ms(cfg, assets, run.state, gen)
-    card = card_line()
-    if args.breakdown:
-        write_breakdown(args.breakdown, cfg, assets, run, args.chunk, phases,
-                        card)
-    return {
-        "metric": "env_steps_per_sec",
-        "value": args.num_envs * args.chunk / best,
-        "median": args.num_envs * args.chunk / sorted(times)[len(times) // 2],
-        "unit": f"env-steps/s ({args.num_envs} envs, "
-                f"render={not args.no_render}, npc={args.npc})",
-        "chunk_steps": args.chunk,
-        "first_chunk_s": run.first_s,
-        "chunk_times_s": times,
-        "chunk_time_cov": cov,
-        **({"contention_warning": True} if contended else {}),
-        "obs_checksum": int(run.obs_sum.item()),
-        "reward_checksum": float(run.reward_sum.item()),
-        "phases_ms_per_step": phases,
-        "device": torch.cuda.get_device_name(0),
-        "card": card,
-        **extra,
-    }
-
-
-def _mesh_record(args, run: ChunkRun, mesh: Optional[pm.Mesh], cfg, assets,
-                 gen) -> Optional[dict]:
-    """The ``--mesh`` line, on rank 0: env-steps/s over all ranks (global
-    envs x chunk over the best of the chunks' slowest-rank times; the
-    median likewise), the same per rank (one card per rank under torchrun),
-    every rank's chunk times and the checksums summed over the ranks. With
-    ``--breakdown``, rank 0 writes the breakdown of its own rows."""
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if rank != 0:
-        return None
-    slowest = [max(chunk) for chunk in zip(*run.times_by_rank)]
-    cov, contended = _spread(slowest)
-    value = args.num_envs * args.chunk / min(slowest)
-    card = card_line()
-    if args.breakdown:
-        lo, hi = (mesh.lo, mesh.hi) if mesh is not None else (0, args.num_envs)
-        write_breakdown(args.breakdown, cfg, assets, run, args.chunk,
-                        phase_ms(cfg, assets, run.state, gen), card,
-                        rows=dict(rank=rank, world=world, lo=lo, hi=hi,
-                                  global_envs=args.num_envs))
-    return {
-        "metric": "env_steps_per_sec",
-        "value": value,
-        "median": args.num_envs * args.chunk
-                  / sorted(slowest)[len(slowest) // 2],
-        "value_per_rank": value / world,
-        "unit": f"env-steps/s ({args.num_envs} envs over {world} ranks, "
-                f"render={not args.no_render}, npc={args.npc})",
-        "world": world,
-        "backend": dist.get_backend(),
-        "envs_per_rank": run.state.town.shape[0],
-        "chunk_steps": args.chunk,
-        "first_chunk_s": run.first_s,
-        "chunk_times_s_by_rank": run.times_by_rank,
-        "slowest_chunk_times_s": slowest,
-        "chunk_time_cov": cov,
-        **({"contention_warning": True} if contended else {}),
-        "obs_checksum": int(run.obs_sum.item()),
-        "reward_checksum": float(run.reward_sum.item()),
-        "device": torch.cuda.get_device_name(0),
-        "card": card,
-    }
-
-
-if __name__ == "__main__":
-    main()
