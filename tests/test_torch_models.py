@@ -4,8 +4,13 @@ from a seed with numpy, at f32 on both sides.
 
 Tolerances: network outputs atol 1e-4 / rtol 1e-5; the closed-form action
 and Gaussian helpers 1e-6; ``sample_squashed`` with JAX's own noise 1e-5;
-the bf16 torso within 5e-2 of the f32 one.
+the bf16 torso within 5e-2 of the f32 one; the torso's channels-last path
+(the card's bf16 path, run here on the CPU) against its NCHW one to the
+rounding of the dtype: features and gradients within 1e-5 of their largest
+at f32, one bf16 spacing of it (2^-7) at bf16.
 """
+
+import io
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +20,11 @@ import torch
 
 from torchdriveenv_tpu.models import cnn as jcnn
 from torchdriveenv_tpu.models import policies as jpol
+from torchdriveenv_tpu_torch.maps.arrays import exact_div
 from torchdriveenv_tpu_torch.models import cnn as tcnn
 from torchdriveenv_tpu_torch.models import convert
 from torchdriveenv_tpu_torch.models import policies as tpol
+from torchdriveenv_tpu_torch.rl import sac as tsac
 
 torch.set_num_threads(2)
 ATOL, RTOL = 1e-4, 1e-5
@@ -223,3 +230,96 @@ def test_fresh_layers_start_like_flax_layers():
         assert float(w.std()) == pytest.approx(fan_in ** -0.5, rel=0.05), name
         assert float(w.abs().max()) <= 2.0 * fan_in ** -0.5 / 0.8796 + 1e-6
         assert not layer.bias.any(), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res", [64, 20])
+def test_torso_features_do_not_depend_on_the_layout(dtype, res):
+    """The same stack as a contiguous NCHW and as a channels-last tensor,
+    through the NCHW path and the channels-last one (the card's bf16 path,
+    forced here): the same features
+    and parameter gradients, to the dtype's rounding; at 20 px the
+    convolutions pad "SAME"."""
+    torso = tcnn.NatureCNN(9, obs_res=res, compute_dtype=dtype)
+    obs = torch.from_numpy(_obs(res, seed=4))
+    nhwc_obs = obs.contiguous(memory_format=torch.channels_last)
+
+    def run(stack, nhwc):
+        torso.zero_grad()
+        h = torso._run(stack, nhwc=nhwc)
+        (h ** 2).sum().backward()
+        return h.detach(), {n: p.grad for n, p in torso.named_parameters()}
+
+    x = tcnn.nhwc_input(obs, dtype)
+    assert x.dtype == dtype and x.is_contiguous(
+        memory_format=torch.channels_last)
+    assert torch.equal(x, exact_div(obs.to(dtype), 255.0))
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    want, want_grads = run(obs, False)
+    assert want.dtype == torch.float32 and float(want.abs().max()) > 0
+    for name, stack, nhwc in (("channels-last input", nhwc_obs, False),
+                              ("channels-last path", obs, True),
+                              ("both", nhwc_obs, True)):
+        h, grads = run(stack, nhwc)
+        assert h.shape == want.shape and h.dtype == torch.float32, name
+        np.testing.assert_allclose(h.numpy(), want.numpy(), rtol=0,
+                                   atol=rel * float(want.abs().max()),
+                                   err_msg=name)
+        for n, g in grads.items():
+            w = want_grads[n]
+            assert g.shape == w.shape and g.is_contiguous(), (name, n)
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=rel * float(w.abs().max()),
+                                       err_msg=f"{name}: {n}")
+
+
+def _sac_batch(seed, res=64):
+    rng = np.random.default_rng(seed)
+    return dict(
+        obs=torch.from_numpy(_obs(res, seed)),
+        next_obs=torch.from_numpy(_obs(res, seed + 1)),
+        action=torch.from_numpy(rng.uniform(-1, 1, (B, 2)).astype(np.float32)),
+        reward=torch.from_numpy(rng.normal(size=B).astype(np.float32)),
+        discount_mask=torch.ones(B), pos=torch.arange(B))
+
+
+@pytest.mark.parametrize("nhwc", [False, True])
+def test_bf16_sac_update_keeps_the_state_nchw(monkeypatch, nhwc):
+    """After a bf16 SAC update (its torsos channels-last where ``nhwc``, as
+    on the card) every parameter, gradient, Adam moment and saved state
+    dict keeps its shape and contiguous NCHW strides."""
+    if nhwc:
+        monkeypatch.setattr(tcnn.NatureCNN, "forward",
+                            lambda self, obs: self._run(obs, nhwc=True))
+    agent = tsac.SAC(tsac.SACConfig(batch_size=B))
+    st = agent.init(seed=2, device="cpu")
+    shapes = {f"{k}.{n}": p.shape for k, m in (
+        ("actor", st.actor), ("critic", st.critic)) for n, p in
+        m.named_parameters()}
+    grads = []
+    apply = tsac.apply_grads
+    monkeypatch.setattr(tsac, "apply_grads", lambda opt, params, gs: (
+        grads.extend(zip(params, gs)), apply(opt, params, gs)))
+    agent.update(_sac_batch(5), generator=torch.Generator().manual_seed(1))
+    assert len(grads) == len(shapes) + 1          # and log_alpha's
+
+    def nchw(t, what):
+        assert t.dtype == torch.float32 and t.is_contiguous(), what
+        assert t.stride() == torch.empty(t.shape).stride(), what
+
+    for p, g in grads:
+        nchw(p, "parameter")
+        assert g.shape == p.shape
+        nchw(g, "gradient")
+    for opt in (st.actor_opt, st.critic_opt):
+        for p, s in opt.state.items():
+            nchw(s["exp_avg"], "exp_avg")
+            nchw(s["exp_avg_sq"], "exp_avg_sq")
+    for k, m in (("actor", st.actor), ("critic", st.critic),
+                 ("target_critic", st.target_critic)):
+        buf = io.BytesIO()
+        torch.save(m.state_dict(), buf)
+        buf.seek(0)
+        for n, t in torch.load(buf).items():
+            assert t.shape == shapes[f"{'critic' if k == 'target_critic' else k}.{n}"]
+            nchw(t, f"{k}.{n}")
