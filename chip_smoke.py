@@ -27,7 +27,12 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              (csrc/npc_gaps.cu) against its twins leader_gaps + light_gaps,
              bit for bit, on the 4096-env batch in route mode (the main
              batch) and in policy mode (8 steps of a policy-mode env); the
-             kernel and the twins timed beside its bounds;
+             kernel and the twins timed beside its bounds. Then [torso]:
+             the torso input kernel (csrc/torso_input.cu) against its twin
+             nhwc_input, bit for bit and with its strides, on stacks that
+             hold every byte value at (512 | 2048 | 4096, 9, 64, 64), its
+             device time and the twin's (torch.profiler) beside the bytes
+             bound ([train] counts its launches in every train step);
   2a. parity the card's correctness gate. (a) The JAX package's own outputs
              (torchdriveenv_tpu_torch/assets/jax_reference_v1.npz) replayed
              on the card by utils/reference.py: the 15 golden scripts of 60
@@ -130,7 +135,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
              envs, a 4.9 GB ring, 64 updates of 512) for 3 train steps, its
              npc_hidden carried. Every train step's rasterizer host launches
              are counted (those of the env step's first two calls, then
-             none); after each run one more train step is traced, in which
+             none), and its launches of the torso input kernel (on-policy:
+             two an env step, one for the last stack, one a gradient step;
+             off-policy, past the warm-up: one an env step, two an update);
+             after each run one more train step is traced, in which
              the kernel must run twice per env step; one PPO train step must
              make no synchronizing call.
   8. tools   the user workflow around training, in the deliverable's order
@@ -276,10 +284,11 @@ MAPS_CPU_TOWN = "Town01"     # the town compiled on the CPU too (fewest segments
 MAP_KERNELS = ("stamp_kernel", "edt_columns", "edt_rows")
 
 
-def kernel_device_us(fn, reps):
-    """Mean device time (us) of each map kernel per launch over `reps` calls
-    of fn, from torch.profiler's CUDA activity (the kernels alone: uploads
-    and allocations are other events); {} where it records none."""
+def kernel_device_us(fn, reps, names=MAP_KERNELS):
+    """Mean device time (us) per launch of each kernel whose name holds one
+    of `names` (the map kernels unless told) over `reps` calls of fn, from
+    torch.profiler's CUDA activity (the kernels alone: uploads and
+    allocations are other events); {} where it records none."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -287,14 +296,15 @@ def kernel_device_us(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    total, count = {}, {}
     for e in prof.key_averages():
         us = (getattr(e, "device_time_total", None)
               or getattr(e, "cuda_time_total", 0))
-        for name in MAP_KERNELS:
+        for name in names:
             if name in e.key and e.count and us:
-                out[name] = us / e.count
-    return out
+                total[name] = total.get(name, 0.0) + us
+                count[name] = count.get(name, 0) + e.count
+    return {name: total[name] / count[name] for name in total}
 
 
 def device_ms(us, names):
@@ -1145,6 +1155,31 @@ def host_per_step(name, rows, env_steps):
               f"{i + 1}, not {want}")
 
 
+def onpolicy_torso_launches(n_steps: int, grad_steps: int) -> int:
+    """The torso input kernel's launches in an on-policy train step: an env
+    step's action and the value of its terminal stack, the last stack's
+    value, then one a gradient step (the torso is shared)."""
+    return 2 * n_steps + 1 + grad_steps
+
+
+def offpolicy_torso_launches(step: int, warm: int, env_steps: int,
+                             updates: int) -> int:
+    """... in train step ``step`` of an off-policy run: none in its first
+    ``warm`` (random actions, no update), then an env step's action and two
+    an update (its stacks and next stacks, each made once for all its
+    torsos)."""
+    return 0 if step < warm else env_steps + 2 * updates
+
+
+def torso_per_step(name, rows, want):
+    """Each train step's launches of the torso input kernel (``rows``, a
+    ``torso_launches`` each) against ``want(i)`` for train step i."""
+    for i, r in enumerate(rows):
+        check(r["torso_launches"] == want(i),
+              f"{name}: {r['torso_launches']} torso input launches in train "
+              f"step {i + 1}, not {want(i)}")
+
+
 # f32 operations of the NPC kernel per (agent, candidate) pair, a cosine
 # counted as one: 2 sub, 2 mul, add, compare (lon); 2 mul, add (lat); sub,
 # cos (the heading cosine); abs, 3 compares (the leader test); add, div,
@@ -1235,6 +1270,61 @@ def npc_gaps_check(assets, state, act, card) -> dict:
     return dict(max_abs_err=err, policy_max_abs_err=policy_err, ms=k_ms,
                 plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
                 bytes_bound_ms=b_ms, operations_bound_ms=o_ms)
+
+
+# ---- [torso]: the torso input kernel -----------------------------------
+
+# SAC's batch (the stage-1 recipe), PPO's minibatch rows a card at four
+# cards, its rollout's rows a card
+TORSO_SHAPES = ((512, 9, 64, 64), (2048, 9, 64, 64), (4096, 9, 64, 64))
+TORSO_REPS = 100
+TORSO_KERNEL = "torso_input_kernel"
+# the twin's one torch pass (a division into a channels-last tensor)
+TORSO_TWIN_KERNEL = "elementwise_kernel"
+
+
+def torso_input_check(card) -> dict:
+    """[torso] the torso input kernel (``torso_input_cuda``) against its
+    plain twin ``nhwc_input`` on the card, bit for bit and stride for
+    stride, on stacks holding every byte value at the three shapes. Each
+    timed by its kernel's device time (torch.profiler, 100 calls; None
+    where the profiler records none) beside the bytes bound (each byte
+    read and each bf16 value written once); the twin is one PyTorch call,
+    so its time is the library's too. The launches on the main path are
+    counted in [train]."""
+    from torchdriveenv_tpu_torch.models import cnn
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    out = {}
+    for shape in TORSO_SHAPES:
+        obs = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8,
+                            device="cuda")
+        obs.view(-1)[:256] = torch.arange(256, device="cuda").to(torch.uint8)
+        kern = cnn.torso_input_cuda(obs)
+        twin = cnn.nhwc_input(obs, torch.bfloat16)
+        torch.cuda.synchronize()
+        bad = int((kern.view(torch.int16) != twin.view(torch.int16)).sum())
+        err = float((kern.float() - twin.float()).abs().max())
+        check(bad == 0 and kern.stride() == twin.stride(),
+              f"[torso] kernel != twin at {shape}: {bad} values differ, "
+              f"strides {kern.stride()} / {twin.stride()}")
+        k_ms = device_ms(kernel_device_us(
+            lambda: cnn.torso_input_cuda(obs), TORSO_REPS, (TORSO_KERNEL,)),
+            (TORSO_KERNEL,))
+        p_ms = device_ms(kernel_device_us(
+            lambda: cnn.nhwc_input(obs, torch.bfloat16), TORSO_REPS,
+            (TORSO_TWIN_KERNEL,)), (TORSO_TWIN_KERNEL,))
+        b_ms = 3 * obs.numel() / PEAK_HBM_BYTES * 1e3
+        share = (f"{100 * b_ms / k_ms:.1f} % of it" if k_ms
+                 else "no kernel record")
+        log(f"[torso] {shape}: kernel = twin on every value (256 byte values "
+            f"among them), strides {kern.stride()}; device time a call: "
+            f"kernel {k_ms} ms, twin {p_ms} ms, bytes bound {b_ms:.4f} ms "
+            f"({share}) [{card}]")
+        out["x".join(map(str, shape))] = dict(ms=k_ms, plain_ms=p_ms,
+                                              bound_ms=b_ms, max_abs_err=err)
+        del obs, kern, twin
+    return dict(out["x".join(map(str, TORSO_SHAPES[0]))], shapes=out)
 
 
 def npc_phase(assets, act, card, prep_of) -> dict:
@@ -1508,12 +1598,15 @@ def optional_packages() -> dict:
 @contextlib.contextmanager
 def probed_train(train_mod, rc):
     """While active, the train step that ``rl.train.train`` builds is
-    wrapped: the rasterizer's host launches per call are counted. Yields a
-    namespace with ``rows`` [{host_launches, host_start, host_end}] (the
+    wrapped: the rasterizer's and the torso input kernel's host launches
+    per call are counted. Yields a namespace with ``rows``
+    [{host_launches, torso_launches, host_start, host_end}] (the
     host clock's ends tell which train step a host event fell in) and the
     ``metrics`` of every call, the plain ``train_fn``, the ``agent``, the
     ``assets``, the agent's state right after ``init_fn`` and at the start
     of the first train step."""
+    from torchdriveenv_tpu_torch.models import cnn
+
     probe = types.SimpleNamespace(rows=[], train_fn=None, agent=None,
                                   assets=None, initial=None, first=None,
                                   metrics=[])
@@ -1533,10 +1626,12 @@ def probed_train(train_mod, rc):
                 if probe.first is None:
                     probe.first = agent.export_state()
                 n0 = rc.render_obs_cuda.launches
+                k0 = cnn.torso_input_cuda.launches
                 t0 = time.perf_counter()
                 out = train_fn(assets, carry)
                 probe.rows.append(dict(
                     host_launches=rc.render_obs_cuda.launches - n0,
+                    torso_launches=cnn.torso_input_cuda.launches - k0,
                     host_start=t0, host_end=time.perf_counter()))
                 probe.metrics.append(out[1])
                 return out
@@ -1568,6 +1663,7 @@ def train_phase(card, have) -> dict:
     """Phase 7: ``rl.train.train`` on the card for PPO (full width), A2C,
     TD3 and the stage-1 SAC recipe with the GRU NPCs, from RECIPES."""
     from torchdriveenv_tpu_torch import config as tconfig
+    from torchdriveenv_tpu_torch.models import cnn
     from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
     from torchdriveenv_tpu_torch.rl import train as train_mod
 
@@ -1591,18 +1687,22 @@ def train_phase(card, have) -> dict:
 
     def run(name, cfg, other_launches, **kw):
         """One ``train`` call -> (carry, probe, per-step rows of host
-        launches, the JSONL records). The rasterizer's host launch count is
-        set to 0 just before and read just after; ``other_launches``: those
-        outside the train steps."""
+        launches of the rasterizer and the torso input kernel, the JSONL
+        records). Both host launch counts are set to 0 just before and read
+        just after; ``other_launches``: the rasterizer's outside the train
+        steps."""
         with probed_train(train_mod, rc) as probe:
             torch.cuda.synchronize()
             rc.render_obs_cuda.launches = 0
+            cnn.torso_input_cuda.launches = 0
             t0 = time.perf_counter()
             carry = train_mod.train(cfg, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = rc.render_obs_cuda.launches
-        rows = [{"host_launches": r["host_launches"]} for r in probe.rows]
+            torso = cnn.torso_input_cuda.launches
+        rows = [{k: r[k] for k in ("host_launches", "torso_launches")}
+                for r in probe.rows]
         logs = sorted(f for f in os.listdir(cfg.log_dir) if f.endswith(".jsonl"))
         with open(os.path.join(cfg.log_dir, logs[-1])) as f:
             records = [json.loads(line) for line in f]
@@ -1617,12 +1717,18 @@ def train_phase(card, have) -> dict:
         in_steps = sum(r["host_launches"] for r in rows)
         check(launches == in_steps + other_launches,
               f"{name}: {launches} host launches, {in_steps} in train steps")
+        torso_in_steps = [r["torso_launches"] for r in rows]
+        check(torso >= sum(torso_in_steps),
+              f"{name}: {torso} torso input launches, {torso_in_steps} in "
+              "train steps")
         log(f"[train] {name}: {len(rows)} train steps in {wall:.1f} s wall "
             f"(evaluations and checkpoints included), rasterizer host "
             f"launches {launches} = {in_steps} in train steps + "
-            f"{other_launches} at the first reset and in the two evaluations "
+            f"{other_launches} at the first reset and in the two evaluations; "
+            f"torso input launches {torso}, per train step {torso_in_steps} "
             f"[{card}]")
         launched[name] = launches
+        torso_launched[name] = torso_in_steps
         return carry, probe, rows, records
 
     def moved(before, after):
@@ -1652,8 +1758,9 @@ def train_phase(card, have) -> dict:
     # in the evaluator's first two steps (the eager one and the capture)
     eval_launches = 1 + 2 * (1 + host_launches(
         0, _ENV["max_environment_steps"], renders=1))
-    launched = {}
-    result = {"optional_packages": have, "rasterizer_host_launches": launched}
+    launched, torso_launched = {}, {}
+    result = {"optional_packages": have, "rasterizer_host_launches": launched,
+              "torso_input_launches": torso_launched}
     torch.cuda.reset_peak_memory_stats()
 
     # ---- PPO at full width ----------------------------------------------
@@ -1668,6 +1775,8 @@ def train_phase(card, have) -> dict:
         log(f"[train] PPO rasterizer host launches per train step "
             f"{[r['host_launches'] for r in rows]} [{card}]")
         host_per_step("PPO", rows, n_steps)
+        torso_per_step("PPO", rows,
+                       lambda i: onpolicy_torso_launches(n_steps, grad_steps))
         last = [r for r in records if "train/loss" in r][-1]
         log("[train] PPO last train record: "
             + ", ".join(f"{k[6:]} {v:.4g}" for k, v in last.items()
@@ -1716,6 +1825,8 @@ def train_phase(card, have) -> dict:
                                        resume_from=full)
         check(len(rows2) == 1, "PPO resumed: one train step")
         host_per_step("PPO resumed", rows2, n_steps)
+        torso_per_step("PPO resumed", rows2,
+                       lambda i: onpolicy_torso_launches(n_steps, grad_steps))
         check(carry2.env_steps == (PPO_TRAIN_STEPS + 1) * per_step,
               f"PPO resumed: env_steps {carry2.env_steps}")
         resumed = probe2.agent.export_state()
@@ -1752,6 +1863,13 @@ def train_phase(card, have) -> dict:
                   and carry.env_steps == depth * steps_per_iter * n_envs,
                   f"{name}: depth")
             host_per_step(name, rows, steps_per_iter)
+            warm = -(-TD3Config().learning_starts
+                     // (steps_per_iter * n_envs)) if name == "TD3" else 0
+            upi = tconfig.RlTrainingConfig().offpolicy_updates_per_iter
+            torso_per_step(name, rows, (
+                lambda i: onpolicy_torso_launches(steps_per_iter, 1))
+                if name == "A2C" else (lambda i: offpolicy_torso_launches(
+                    i, warm, steps_per_iter, upi)))
             after = probe.agent.export_state()
             files = sorted(os.listdir(cfg.checkpoint_dir))
             check(f"model_{carry.env_steps}" in files
@@ -1763,10 +1881,7 @@ def train_phase(card, have) -> dict:
                       f"A2C: Adam count {after['opt']['step']}")
                 counts = dict(adam=after["opt"]["step"])
             else:
-                warm = -(-TD3Config().learning_starts
-                         // (steps_per_iter * n_envs))    # train steps of warmup
-                updates = (depth - warm) * \
-                    tconfig.RlTrainingConfig().offpolicy_updates_per_iter
+                updates = (depth - warm) * upi    # warm: train steps of warmup
                 for k in ("actor", "critic", "target_actor", "target_critic"):
                     check(moved(probe.initial[k], after[k]), f"TD3: {k}")
                 check(after["step"] == updates
@@ -1809,13 +1924,15 @@ def train_phase(card, have) -> dict:
               and carry.env_steps == NPC_SAC_TRAIN_STEPS * spi * n_envs,
               "SAC npc policy: depth")
         host_per_step("SAC npc policy", rows, spi)
+        warm = -(-SACConfig().learning_starts // (spi * n_envs))
+        torso_per_step("SAC npc policy", rows,
+                       lambda i: offpolicy_torso_launches(i, warm, spi, upi))
         hidden = carry.rollout.env_state.npc_hidden
         check(hidden is not None and hidden.shape == (n_envs, 96, 16)
               and bool(torch.isfinite(hidden).all())
               and float(hidden.abs().max()) > 0.0,
               "SAC npc policy: npc_hidden is not carried")
         after = probe.agent.export_state()
-        warm = -(-SACConfig().learning_starts // (spi * n_envs))
         updates = (NPC_SAC_TRAIN_STEPS - warm) * upi
         check(after["step"] == updates and after["critic_opt"]["step"] == updates,
               f"SAC npc policy: {after['step']} updates")
@@ -4122,6 +4239,7 @@ def main() -> int:
     compare("crowded batch, right-handed", crowd.town, crowd_prep,
             left_handed=False)
     npc_cmp = npc_gaps_check(assets, state, act, card)
+    torso = torso_input_check(card)
 
     parity = parity_phase(card)
     maps_path = maps_phase(assets, state, card)
@@ -4246,6 +4364,19 @@ def main() -> int:
         "library_ms": None,
         "bytes_bound_ms": npc_cmp["bytes_bound_ms"],
         "operations_bound_ms": npc_cmp["operations_bound_ms"],
+    }, {
+        "name": "torso_input",
+        "route": "cuda",
+        "source": "torchdriveenv_tpu_torch/csrc/torso_input.cu",
+        "replaces": "torchdriveenv_tpu/models/cnn.py:30",
+        "launches": trained["torso_input_launches"],
+        "max_abs_err": max(v["max_abs_err"] for v in torso["shapes"].values()),
+        "ms": torso["ms"],
+        "plain_ms": torso["plain_ms"],
+        "bound_ms": torso["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": torso["plain_ms"],
+        "shapes": torso["shapes"],
     }] + [map_kernel_line(maps_path, name) for name in ("stamp", "edt")],
         "main_path": {"traced_steps": TRACED_STEPS, "num_envs": N_ENVS,
                       "obs_checksum": checksum,

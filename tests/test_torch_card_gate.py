@@ -17,6 +17,11 @@ would pass a broken port on the card, where no other test looks.
   host_launches    a new step function launches the rasterizer from the
                    host in its first two calls (eager, capture), never in a
                    replay.
+  torso_per_step   each train step of the training CLI makes the torso
+                   input passes that ``onpolicy_torso_launches`` and
+                   ``offpolicy_torso_launches`` state, counted by
+                   ``probed_train`` (here at tiny sizes, a counting input
+                   function standing in for the card's kernel).
 
 Each case fails if the rule it names were dropped from the comparator.
 """
@@ -190,3 +195,65 @@ def test_metrics_close(got, want, close):
 ])
 def test_host_launches(first, n, renders, want):
     assert cs.host_launches(first, n, renders=renders) == want
+
+
+# tiny runs of the training CLI (rl/train.py) on the CPU: 2 envs, 20 px,
+# 5-step episodes; off-policy, 2 env steps and 3 updates a train step, the
+# first two train steps warm-up
+TORSO_ENVS, TORSO_SPI, TORSO_UPI = 2, 2, 3
+TORSO_KW = dict(
+    sac=dict(batch_size=4, learning_starts=8, buffer_size=2 * 300),
+    td3=dict(batch_size=4, learning_starts=8, buffer_size=2 * 300),
+    ppo=dict(n_steps=4, batch_size=4, n_epochs=2),
+    a2c=dict(n_steps=4))
+
+
+@pytest.mark.parametrize("algo", sorted(TORSO_KW))
+def test_torso_per_step(algo, tmp_path, monkeypatch):
+    from torchdriveenv_tpu_torch.config import construct_rl_training_config
+    from torchdriveenv_tpu_torch.models import cnn
+    from torchdriveenv_tpu_torch.ops import rasterizer_cuda as rc
+    from torchdriveenv_tpu_torch.rl import sac, td3
+    from torchdriveenv_tpu_torch.rl import train as train_mod
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    monkeypatch.setattr(cnn.torso_input_cuda, "launches", 0)
+    plain = cnn.torso_input
+
+    def counted(obs, dtype):
+        cnn.torso_input_cuda.launches += 1
+        return plain(obs, dtype)
+
+    for mod in (cnn, sac, td3):
+        monkeypatch.setattr(mod, "torso_input", counted)
+    kw = TORSO_KW[algo]
+    n, steps = TORSO_ENVS, 4
+    per_step = kw.get("n_steps", TORSO_SPI) * n
+    cfg = construct_rl_training_config(dict(
+        algorithm=algo, parallel_env_num=n, total_timesteps=steps * per_step,
+        algo_kwargs=dict(kw), log_dir=str(tmp_path / "runs"),
+        checkpoint_dir=str(tmp_path / "ckpt"),
+        offpolicy_steps_per_iter=TORSO_SPI,
+        offpolicy_updates_per_iter=TORSO_UPI,
+        env=dict(ego_only=True, max_environment_steps=5, device="cpu", seed=3,
+                 simulator=dict(renderer=dict(obs_res=20))),
+        eval_val_callback=dict(n_steps=10 ** 6, eval_n_episodes=2,
+                               record=False),
+        eval_train_callback=dict(n_steps=10 ** 6, eval_n_episodes=2),
+        wandb_callback=dict(model_save_freq=10 ** 6)))
+    with cs.probed_train(train_mod, rc) as probe:
+        train_mod.train(cfg)
+    if algo == "ppo":
+        grad_steps = kw["n_epochs"] * (per_step // kw["batch_size"])
+        want = [cs.onpolicy_torso_launches(kw["n_steps"], grad_steps)] * steps
+    elif algo == "a2c":
+        want = [cs.onpolicy_torso_launches(kw["n_steps"], 1)] * steps
+    else:
+        warm = -(-kw["learning_starts"] // per_step)
+        want = [cs.offpolicy_torso_launches(i, warm, TORSO_SPI, TORSO_UPI)
+                for i in range(steps)]
+        assert want[0] == 0 and want[-1] == TORSO_SPI + 2 * TORSO_UPI
+    assert [r["torso_launches"] for r in probe.rows] == want
+    cs.torso_per_step(algo, probe.rows, lambda i: want[i])
+    with pytest.raises(AssertionError, match="torso input launches"):
+        cs.torso_per_step(algo, probe.rows, lambda i: want[i] + 1)

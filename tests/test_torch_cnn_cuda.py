@@ -15,6 +15,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from torchdriveenv_tpu_torch.maps.arrays import exact_div
 from torchdriveenv_tpu_torch.models import cnn
 from torchdriveenv_tpu_torch.rl import sac
 from torchdriveenv_tpu_torch.utils.precision import set_f32_precision
@@ -43,6 +44,9 @@ def _second_update(monkeypatch, nhwc):
     agent)."""
     with monkeypatch.context() as m:
         if not nhwc:
+            # the update makes the NCHW input, as the torso did before
+            m.setattr(sac, "torso_input",
+                      lambda obs, dtype: exact_div(obs.to(dtype), 255.0))
             m.setattr(cnn.NatureCNN, "forward",
                       lambda self, obs: self._run(obs, nhwc=False))
         agent = sac.SAC(sac.SACConfig(batch_size=B))

@@ -246,7 +246,9 @@ def test_torso_features_do_not_depend_on_the_layout(dtype, res):
 
     def run(stack, nhwc):
         torso.zero_grad()
-        h = torso._run(stack, nhwc=nhwc)
+        x = (tcnn.nhwc_input(stack, dtype) if nhwc
+             else exact_div(stack.to(dtype), 255.0))
+        h = torso._run(x, nhwc=nhwc)
         (h ** 2).sum().backward()
         return h.detach(), {n: p.grad for n, p in torso.named_parameters()}
 
@@ -289,6 +291,8 @@ def test_bf16_sac_update_keeps_the_state_nchw(monkeypatch, nhwc):
     on the card) every parameter, gradient, Adam moment and saved state
     dict keeps its shape and contiguous NCHW strides."""
     if nhwc:
+        monkeypatch.setattr(tsac, "torso_input",
+                            lambda obs, dtype: tcnn.nhwc_input(obs, dtype))
         monkeypatch.setattr(tcnn.NatureCNN, "forward",
                             lambda self, obs: self._run(obs, nhwc=True))
     agent = tsac.SAC(tsac.SACConfig(batch_size=B))

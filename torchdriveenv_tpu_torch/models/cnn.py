@@ -13,17 +13,24 @@ the torso under autocast with f32 parameters; ``torch.float32`` runs it
 plainly.
 
 On a CUDA card the bf16 torso runs channels-last (NHWC) from its input to
-its last convolution: cuDNN's bf16 tensor-op convolutions run NHWC, and
+its last convolution, its input made by the hand-written kernel
+``csrc/torso_input.cu`` (``torso_input_cuda``; ``nhwc_input`` is its plain
+twin): cuDNN's bf16 tensor-op convolutions run NHWC, and
 handed NCHW tensors they transpose every input, weight and output, forward
 and backward. conv1's 9 input channels stay 9: cuDNN pads them to 16
 itself and runs the kernels it runs for the NCHW torso, with their
 rounding (handed 16 channels it picks others, whose rounding Adam
 compounds). The parameters, their gradients and every checkpoint keep
 their contiguous f32 NCHW layout; on the CPU the torso runs NCHW.
+
+A learner that hands one stack to several torsos makes their input once
+(``torso_input``) and hands that to each: ``forward`` takes the uint8
+stack or an input already made.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -32,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from torchdriveenv_tpu_torch.maps.arrays import device_constant, exact_div
+from torchdriveenv_tpu_torch.ops import _build
 
 VALID_MIN_RES = 36      # below this width the convolutions pad "SAME"
 _CONVS = ((8, 4), (4, 2), (3, 1))   # (kernel, stride) of conv1..conv3
@@ -68,12 +76,77 @@ def flax_default_init_(module: nn.Module) -> None:
 
 def nhwc_input(obs: torch.Tensor, dtype) -> torch.Tensor:
     """uint8 (B, C, H, W) -> ``obs / 255`` in ``dtype`` as a channels-last
-    tensor, in one pass that reads each byte of the stack once and writes
-    the layout, the cast and the division together. The divisor is a
-    tensor, so the division rounds once, as ``exact_div``'s."""
+    tensor, in one torch pass that writes the layout, the cast and the
+    division together: the plain twin of ``torso_input_cuda``, which the
+    card runs. The divisor is a tensor, so the division rounds once, as
+    ``exact_div``'s."""
     x = torch.empty(obs.shape, dtype=dtype, device=obs.device,
                     memory_format=torch.channels_last)
     return torch.div(obs, device_constant(255.0, obs.device, dtype), out=x)
+
+
+# the band of image rows a block of the kernel takes: the most, a power of
+# two, whose planes fit in this many bytes of shared memory
+_BAND_BYTES = 8192
+_check = functools.partial(_build.check_tensor, "torso_input_cuda")
+
+
+def torso_input_cuda(obs: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel of ``csrc/torso_input.cu`` on a CUDA uint8 stack
+    (B, C, H, W), contiguous, on the current stream -> ``obs / 255`` as a
+    bf16 channels-last tensor: what ``nhwc_input(obs, torch.bfloat16)``
+    returns, bit for bit, strides included. A stack of no rows launches
+    nothing. Raises on a tensor elsewhere than the GPU, on any other dtype,
+    rank or layout, on a failed build and on a failed launch.
+    ``torso_input_cuda.launches`` counts the launches from the host."""
+    dev = obs.device
+    if dev.type != "cuda":
+        raise ValueError("torso_input_cuda needs a CUDA tensor; got "
+                         f"{dev} (use nhwc_input on the CPU)")
+    if obs.dim() != 4:
+        raise ValueError("torso_input_cuda: obs must be (B, C, H, W); got "
+                         f"{tuple(obs.shape)}")
+    _check("obs", obs, torch.uint8, obs.shape, dev)
+    b, c, h, w = obs.shape
+    out = torch.empty(obs.shape, dtype=torch.bfloat16, device=dev,
+                      memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    fit = max(_BAND_BYTES // (c * w), 1)
+    rows = min(1 << (fit.bit_length() - 1), h)
+    lib = _build.load_torso_input()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tde_torso_input(
+            obs.data_ptr(), out.data_ptr(), b, c, h, w, rows,
+            int(w % 16 == 0 and obs.data_ptr() % 16 == 0),
+            int(w * c % 8 == 0 and out.data_ptr() % 16 == 0), stream)
+    if rc != 0:
+        raise RuntimeError(f"torso_input kernel launch failed: CUDA error "
+                           f"{rc} ({lib.tde_torso_input_error_string(rc).decode()})")
+    torso_input_cuda.launches += 1
+    return out
+
+
+torso_input_cuda.launches = 0   # kernel launches since the last reset to 0
+
+
+def torso_input(obs: torch.Tensor, dtype) -> torch.Tensor:
+    """The uint8 stack (B, C, H, W) as the torso of ``compute_dtype``
+    ``dtype`` takes it: ``obs / 255`` in ``dtype``; on a CUDA card in bf16
+    channels-last, by the kernel; elsewhere NCHW, ``exact_div``'s division.
+    ``NatureCNN.forward`` makes it from a uint8 stack; a learner that hands
+    one stack to several torsos makes it once and hands it to each."""
+    obs = obs.contiguous()
+    if _channels_last(obs, dtype):
+        return torso_input_cuda(obs)
+    return exact_div(obs.to(dtype), 255.0)
+
+
+def _channels_last(obs: torch.Tensor, dtype) -> bool:
+    """Whether the torso of ``dtype`` runs channels-last on ``obs``'s
+    device: the bf16 torso on a CUDA card."""
+    return obs.is_cuda and dtype == torch.bfloat16
 
 
 class _NhwcWeight(torch.autograd.Function):
@@ -111,7 +184,8 @@ class _NhwcBias(torch.autograd.Function):
 
 
 class NatureCNN(nn.Module):
-    """obs (B, C, H, W) uint8, C = 3 * frame_stack -> (B, features) f32."""
+    """obs (B, C, H, W) uint8 (or its ``torso_input``), C = 3 * frame_stack
+    -> (B, features) f32."""
 
     def __init__(self, in_channels: int, features: int = 512,
                  obs_res: int = 64, compute_dtype=torch.bfloat16):
@@ -142,16 +216,30 @@ class NatureCNN(nn.Module):
         return F.relu(self.fc(x.flatten(1)))
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
-        return self._run(obs, nhwc=obs.is_cuda
-                         and self.compute_dtype == torch.bfloat16)
-
-    def _run(self, obs: torch.Tensor, nhwc: bool) -> torch.Tensor:
-        """The torso, channels-last (``nhwc``) or NCHW."""
+        """``obs``: the uint8 stack, or ``torso_input(stack,
+        self.compute_dtype)`` made once for several torsos. Raises
+        ``TypeError`` on any other input: one of another dtype, or not in the
+        layout ``torso_input`` makes on its device (channels-last on the
+        card in bf16, contiguous NCHW elsewhere)."""
         dtype = self.compute_dtype
-        x = (nhwc_input(obs, dtype) if nhwc
-             else exact_div(obs.to(dtype), 255.0))
+        nhwc = _channels_last(obs, dtype)
+        if obs.dtype == torch.uint8:
+            obs = torso_input(obs, dtype)
+        elif obs.dtype != dtype or not obs.is_contiguous(
+                memory_format=(torch.channels_last if nhwc
+                               else torch.contiguous_format)):
+            raise TypeError(
+                f"NatureCNN: a {obs.dtype} input of strides {obs.stride()} "
+                f"to a {dtype} torso on {obs.device}; pass the uint8 stack "
+                "or torso_input(stack, compute_dtype)")
+        return self._run(obs, nhwc)
+
+    def _run(self, x: torch.Tensor, nhwc: bool) -> torch.Tensor:
+        """The torso on its input made (``obs / 255`` in
+        ``compute_dtype``), channels-last (``nhwc``) or NCHW."""
+        dtype = self.compute_dtype
         if dtype == torch.float32:
             return self._torso(x, nhwc)
-        with torch.autocast(obs.device.type, dtype=dtype):
+        with torch.autocast(x.device.type, dtype=dtype):
             x = self._torso(x, nhwc)
         return x.to(torch.float32)

@@ -25,7 +25,7 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-KERNELS = ("rasterizer", "mapkit", "npc_gaps")
+KERNELS = ("rasterizer", "mapkit", "npc_gaps", "torso_input")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -134,4 +134,17 @@ def load_npc_gaps() -> ctypes.CDLL:
     lib.tde_npc_gaps.restype = ci
     lib.tde_npc_gaps_error_string.argtypes = [ci]
     lib.tde_npc_gaps_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_torso_input() -> ctypes.CDLL:
+    """The torso input's library (``tde_torso_input``), built at first use."""
+    build(("torso_input",))
+    lib = ctypes.CDLL(library_path("torso_input"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.tde_torso_input.argtypes = [vp, vp] + [ci] * 7 + [vp]
+    lib.tde_torso_input.restype = ci
+    lib.tde_torso_input_error_string.argtypes = [ci]
+    lib.tde_torso_input_error_string.restype = ctypes.c_char_p
     return lib

@@ -20,6 +20,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 from torchdriveenv_tpu_torch.maps.arrays import resolve_device
+from torchdriveenv_tpu_torch.models.cnn import torso_input
 from torchdriveenv_tpu_torch.models.policies import (
     DoubleQCritic,
     SquashedGaussianActor,
@@ -200,7 +201,9 @@ class SAC:
         alpha = (torch.full((), cfg.fixed_alpha, dtype=torch.float32,
                             device=st.log_alpha.device)
                  if fixed else torch.exp(st.log_alpha.detach()))
-        obs, next_obs = batch["obs"], batch["next_obs"]
+        # each stack feeds several torsos: its input is made once for all
+        obs = torso_input(batch["obs"], self.compute_dtype)
+        next_obs = torso_input(batch["next_obs"], self.compute_dtype)
         critic_params = list(st.critic.parameters())
         actor_params = list(st.actor.parameters())
 

@@ -19,6 +19,7 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 
 from torchdriveenv_tpu_torch.maps.arrays import resolve_device
+from torchdriveenv_tpu_torch.models.cnn import torso_input
 from torchdriveenv_tpu_torch.models.policies import DeterministicActor, DoubleQCritic
 from torchdriveenv_tpu_torch.parallel.mesh import (
     Mesh,
@@ -163,7 +164,10 @@ class TD3:
         of ``batch_size``: the losses are this rank's sums over the global
         size, and the gradients and metrics are summed over the ranks."""
         cfg, st = self.cfg, self.state
-        obs, action = batch["obs"], batch["action"]
+        action = batch["action"]
+        # each stack feeds several torsos: its input is made once for all
+        obs = torso_input(batch["obs"], self.compute_dtype)
+        next_obs = torso_input(batch["next_obs"], self.compute_dtype)
         critic_params = list(st.critic.parameters())
         b = action.shape[0] if mesh is None else cfg.batch_size
 
@@ -174,9 +178,8 @@ class TD3:
                                     dtype=action.dtype)
             noise = torch.clamp(cfg.target_noise * noise[batch["pos"]], -cfg.noise_clip,
                                 cfg.noise_clip)
-            next_a = torch.clamp(st.target_actor(batch["next_obs"]) + noise,
-                                 -1.0, 1.0)
-            tq1, tq2 = st.target_critic(batch["next_obs"], next_a)
+            next_a = torch.clamp(st.target_actor(next_obs) + noise, -1.0, 1.0)
+            tq1, tq2 = st.target_critic(next_obs, next_a)
             target_q = (batch["reward"] + cfg.gamma * batch["discount_mask"]
                         * torch.minimum(tq1, tq2))
 
